@@ -1,0 +1,142 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
+built at first use into ``build/accblas_tpu_torch/`` at the root of the
+checkout. The file name carries a hash of the sources and flags, so an
+edited source builds anew and an unchanged one is reused. Nothing here runs
+at import time: the CPU tests import every module on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+from ..accessor import dtypes
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accblas_tpu_torch"
+
+# -fmad=false: no mul+add contraction anywhere, so the error-free transforms
+# of df64.cuh hold; two_prod asks for its fused multiply-add explicitly
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+# run-time codes of the kernels' template parameters (csrc/accessor.cuh)
+STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "f8e4m3": 3, "f8e5m2": 4}
+TIER_CODE = {"f32": 0, "bf16": 1, "f16": 2, "df64_fast": 3, "df64_precise": 4}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists(_NVCC_DEFAULT):
+        return _NVCC_DEFAULT
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, out: Path):
+    """Start nvcc on csrc/<name>.cu, writing to a temporary file beside `out`."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc, tmp: str, out: Path):
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+
+
+def build(*names: str) -> list[Path]:
+    """Build the named sources (all of csrc/*.cu if none), concurrently, where
+    no up-to-date library exists yet. Returns the library paths."""
+    names = names or tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
+    paths = [_lib_path(n) for n in names]
+    jobs = []
+    try:
+        for n, p in zip(names, paths):
+            if not p.exists():
+                jobs.append((n, *_start(n, p), p))
+        for name, proc, tmp, out in jobs:
+            _finish(name, proc, tmp, out)
+    finally:
+        # on a failure, stop the other compilers and drop their partial output
+        for _, proc, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        (path,) = build(name)
+        lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def function(lib: str, name: str, argtypes):
+    """C entry point `name` of csrc/<lib>.cu, with its argument types set.
+    Every entry point returns a cudaError_t as an int."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tier(ar: str, precise: bool, op: str) -> str:
+    """The kernel tier of an arithmetic type: df64 splits into its fast and
+    precise forms; f64 has no tier."""
+    if ar == "df64":
+        return "df64_precise" if precise else "df64_fast"
+    if ar not in TIER_CODE:
+        raise ValueError(f"{op} has no {ar} arithmetic tier (f32, bf16, f16, df64)")
+    return ar
+
+
+def check(err: int, what: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def storage_code(t, what: str) -> int:
+    """The kernel storage code of tensor `t`'s dtype; raises on a dtype the
+    kernels do not take."""
+    try:
+        name = dtypes.canon(t.dtype)
+    except ValueError:
+        name = None
+    if name not in STORAGE_CODE:
+        raise ValueError(f"{what}: dtype {t.dtype} is not a kernel storage type "
+                         f"({', '.join(STORAGE_CODE)})")
+    return STORAGE_CODE[name]
