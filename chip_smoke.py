@@ -9,13 +9,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
+     the TRSV/TRSM sweep in every mode, storage and tier, and the triangular
+     residual, at n = 1000 (ragged) and 4096 on seeded LU factors, against
+     the plain versions and a float64 solve of the stored triangle; the leaf
+     gather bit for bit against its plain version;
   4. main path at full size through the public API: acc_dot Acc<f32, bf16>
      at n = 2^29, acc_gemv Acc<f32, bf16> at 16384^2 (beta = 0), and the
-     flagship 1024x2048 GEMV (alpha = beta = 1) from seeded host data; each
-     checked against float64, with the launch counters reset just before and
-     read just after;
-  5. timing of each kernel and of its plain version at the main-path shapes
-     (1 warm-up, 10 reps, minimum, CUDA events).
+     flagship 1024x2048 GEMV (alpha = beta = 1) from seeded host data; then
+     trsv fixed f32 and acc_trsv Acc<df64, f32> at n = 16384 (upper, unit,
+     A = uniform(-1, 1)/n, b = ones, as bench.py) and the df64 residual of
+     the f32 solution (tri_gemv_df64); each checked against float64, with the
+     launch counters reset just before and read just after each path;
+  5. timing of each kernel, of its plain version and of the one PyTorch call
+     that computes the same function, where there is one, at the main-path
+     shapes (1 warm-up, 10 reps, minimum, CUDA events), beside the least time
+     the card could take (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -32,7 +40,19 @@ import torch
 
 N_DOT = 2**29
 N_GEMV = 16384
+N_TRSV = 16384
 SEED = 42
+# the card's published peaks (H100 SXM data sheet): device memory bytes/s,
+# and float32 flop/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take for work that must move
+    `nbytes` and do `flops` f32 operations, and which of the two bounds it."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def log(msg: str):
@@ -147,6 +167,128 @@ def _gemv_case(chk: Checks, label: str, a, x, res, alpha, beta, ar, precise=Fals
                    f"finite={finite}")
 
 
+def _packed_lu(n: int, seed: int, dev):
+    """The JAX tests' TRSV operand (tests/test_trsv.py): the packed LU factor
+    of a diagonally dominant seeded matrix, and a seeded right-hand side,
+    made on the host. `ldu` is the same factor with U's strict upper triangle
+    scaled by U's diagonal (the LDU form): the operand of the unit-upper
+    mode, which on the raw factor drops U's large diagonal and is
+    exponentially ill-conditioned."""
+    import numpy as np
+    import scipy.linalg
+    from accblas_tpu_torch.utils import MatrixInfo, gen_mtx, interop
+
+    a64 = gen_mtx(MatrixInfo(n, n), seed=seed) + np.eye(n) * (0.25 * n)
+    lu, _ = scipy.linalg.lu_factor(a64)
+    ldu = np.tril(lu) + np.triu(lu, 1) / np.diag(lu)[:, None]
+    b = gen_mtx(MatrixInfo(1, n), seed=seed + 1)[0]
+    return tuple(interop.from_numpy(v.astype(np.float32), device=dev) for v in (lu, ldu, b))
+
+
+def _tri64(a, uplo: str, unit: bool):
+    t = a.double()
+    t = torch.tril(t) if uplo == "lower" else torch.triu(t)
+    if unit:
+        t.fill_diagonal_(1.0)
+    return t
+
+
+def _solve64(a, b, uplo: str, unit: bool):
+    """float64 solve of the stored triangle, on the card."""
+    x = torch.linalg.solve_triangular(_tri64(a, uplo, unit), b.double().reshape(b.shape[0], -1),
+                                      upper=uplo != "lower")
+    return x.reshape(b.shape)
+
+
+def _rel1(got, ref) -> float:
+    got, ref = got.double().reshape(-1), ref.double().reshape(-1)
+    return float((got - ref).abs().sum() / ref.abs().sum())
+
+
+def trsv_plain(a, b, uplo: str, unit: bool, ar: str, out_dtype):
+    """The whole solve through the plain versions only: leaf gather, the
+    batched inversion the kernel path uses too, and the plain sweep."""
+    from accblas_tpu_torch.ops import trsv as trsvops
+
+    n = a.shape[0]
+    nb = -(-n // trsvops.BLOCK)
+    d = trsvops._extract_leaf_diag_plain(a, nb * trsvops.BLOCK // trsvops.LEAF)
+    inv = trsvops._leaf_inverses(d, n, uplo == "lower", unit)
+    bt = trsvops._rhs_panels(b.reshape(n, -1), nb)
+    return trsvops._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, out_dtype).reshape(b.shape)
+
+
+def _trsv_case(chk: Checks, label: str, fn: str, a, b, uplo: str, unit: bool, ar: str,
+               tol: float):
+    """One public TRSV/TRSM call through the kernels, against the plain
+    versions and float64. Bounds: the JAX tests' (tests/test_trsv.py)."""
+    import accblas_tpu_torch
+
+    kw = {"ar": ar} if fn.startswith("acc_") else {}
+    got = getattr(accblas_tpu_torch, fn)(a, b, uplo, unit, unstable_ok=True, **kw)
+    plain = trsv_plain(a, b, uplo, unit, ar, got.dtype)
+    ref = _solve64(a, b, uplo, unit)
+    finite = bool(torch.isfinite(got).all())
+    k_err, p_err, kp = _rel1(got, ref), _rel1(plain, ref), _rel1(got, plain)
+    ok = finite and k_err < tol and p_err < tol and kp < 2 * tol
+    chk.record(ok, f"{fn} {label} n={a.shape[0]} {uplo} unit={unit} ar={ar}: "
+                   f"kernel_err={k_err:.3e} plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} "
+                   f"bound={tol:.1e} finite={finite}")
+
+
+def _tri_gemv_case(chk: Checks, a, x, b, uplo: str, unit: bool):
+    """tri_gemv_df64 against its plain version and float64: the 1-norm error
+    below 1e-6 of ||T x||_1 (the JAX test's bound)."""
+    from accblas_tpu_torch.ops import tri_gemv as trigops
+
+    got = trigops.tri_gemv_df64(a, x, b, uplo, unit)
+    plain = trigops._tri_gemv_plain(a, x, b, uplo == "lower", unit)
+    tx = _tri64(a, uplo, unit) @ x.double()
+    ref, den = b.double() - tx, float(tx.abs().sum())
+    k_err = float((got.double() - ref).abs().sum()) / den
+    p_err = float((plain.double() - ref).abs().sum()) / den
+    kp = float((got.double() - plain.double()).abs().sum()) / den
+    ok = bool(torch.isfinite(got).all()) and k_err < 1e-6 and p_err < 1e-6 and kp < 2e-6
+    chk.record(ok, f"tri_gemv_df64 {a.dtype} n={a.shape[0]} {uplo} unit={unit}: "
+                   f"kernel_err={k_err:.3e} plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} "
+                   f"bound=1.0e-06")
+
+
+def trsv_checks(chk: Checks, dev):
+    from accblas_tpu_torch.ops import trsv as trsvops
+    from accblas_tpu_torch.utils import devgen
+
+    bf, f16 = torch.bfloat16, torch.float16
+    for n in (1000, 4096):
+        lu, ldu, b = _packed_lu(n, SEED, dev)
+        for uplo, unit in (("upper", True), ("lower", True), ("upper", False),
+                           ("lower", False)):
+            op = ldu if (uplo, unit) == ("upper", True) else lu
+            _trsv_case(chk, "fixed f32", "trsv", op, b, uplo, unit, "f32", 1e-4)
+        for st in (bf, f16):
+            _trsv_case(chk, f"Acc<f32,{st}>", "acc_trsv", lu.to(st), b, "upper", False,
+                       "f32", 1e-3)
+        for st, (uplo, unit) in ((torch.float32, ("upper", False)),
+                                 (torch.float32, ("lower", True)), (bf, ("upper", False))):
+            _trsv_case(chk, f"Acc<df64,{st}>", "acc_trsv", lu.to(st), b, uplo, unit, "df64",
+                       5e-6)
+        for k in (3, 8):
+            bm = devgen.gen_f32((n, k), SEED, "trsv_b", dev)
+            _trsv_case(chk, f"fixed f32 k={k}", "trsm", lu, bm, "upper", False, "f32", 1e-4)
+            _trsv_case(chk, f"Acc<df64,f32> k={k}", "acc_trsm", lu, bm, "lower", True, "df64",
+                       5e-6)
+        m = -(-n // trsvops.BLOCK) * trsvops.BLOCK // trsvops.LEAF
+        # f8e5m2: the factor's diagonal (n/4) overflows e4m3 to NaN
+        for st in (torch.float32, bf, torch.float8_e5m2):
+            same = torch.equal(trsvops._extract_leaf_diag(lu.to(st), m).view(torch.int32),
+                               trsvops._extract_leaf_diag_plain(lu.to(st), m).view(torch.int32))
+            chk.record(same, f"leaf gather {st} n={n}: bits equal to the plain version={same}")
+        x = devgen.gen_f32((n,), SEED, "gemv_x", dev)
+        _tri_gemv_case(chk, lu, x, b, "upper", False)
+        _tri_gemv_case(chk, lu.to(bf), x, b, "lower", True)
+        del lu, ldu, b
+
+
 def phase_checks():
     from accblas_tpu_torch.utils import devgen
 
@@ -192,6 +334,7 @@ def phase_checks():
         _gemv_case(chk, "Acc<df64,bf16> beta=0 res=NaN", ab, xb, nan, 1.0, 0.0, "df64")
         del a, x, r, ab, xb
 
+    trsv_checks(chk, dev)
     torch.cuda.synchronize()
     if chk.failures:
         raise AssertionError(f"{len(chk.failures)} kernel checks failed:\n" +
@@ -292,6 +435,9 @@ def phase_main() -> list[dict]:
 
     dot_ms, dot_plain_ms = best(dot_k, dot_p)
     gemv_ms, gemv_plain_ms = best(gemv_k, gemv_p)
+    # the one PyTorch call computing the same function: the yardstick only
+    dot_lib_ms = benchmark_function(lambda: torch.dot(xb, yb))
+    gemv_lib_ms = benchmark_function(lambda: torch.mv(ab, xg))
     dot_bytes = N_DOT * (2 + 2)
     gemv_bytes = N_GEMV * N_GEMV * 2 + N_GEMV * 2 + N_GEMV * 4
     for name, flops, nbytes, ms, pms in (
@@ -301,32 +447,203 @@ def phase_main() -> list[dict]:
         log(f"time {name}: kernel {ms:.4f} ms {flops / ms / 1e6:.1f} GFLOP/s "
             f"{nbytes / ms / 1e6:.1f} GB/s | plain {pms:.4f} ms "
             f"{flops / pms / 1e6:.1f} GFLOP/s {nbytes / pms / 1e6:.1f} GB/s")
+    dot_bound, dot_by = bound(dot_bytes, 2 * N_DOT)
+    gemv_bound, gemv_by = bound(gemv_bytes, 2 * N_GEMV**2)
+    log(f"time library torch.dot bf16 n={N_DOT}: {dot_lib_ms:.4f} ms | "
+        f"torch.mv bf16 {N_GEMV}^2: {gemv_lib_ms:.4f} ms | bounds dot {dot_bound:.4f} ms, "
+        f"gemv {gemv_bound:.4f} ms")
 
-    # the GEMV tiers the TPU served with its full-row kernel, at 16384^2
+    # the GEMV tiers the TPU served with its full-row kernel, at 16384^2;
+    # torch.mv computes the f32 tier's function, and no PyTorch call df64's
     a32 = ab.float()
     x32 = xg.float()
-    for label, fk, fp, nbytes in (
+    for label, fk, fp, fl, nbytes in (
         (f"gemv fixed f32 {N_GEMV}^2",
          lambda: gemvops.gemv(a32, x32, rg, 1.0, 0.0),
          lambda: gemvops._gemv_plain(a32, x32, rg, 1.0, 0.0, "f32", False),
-         N_GEMV * N_GEMV * 4 + N_GEMV * 8),
+         lambda: torch.mv(a32, x32), N_GEMV * N_GEMV * 4 + N_GEMV * 8),
         (f"gemv Acc<df64,bf16> fast {N_GEMV}^2",
          lambda: acc_gemv(ab, xg, rg, 1.0, 0.0, ar="df64"),
          lambda: gemvops._gemv_plain(ab, xg, rg, 1.0, 0.0, "df64_fast", False),
-         gemv_bytes),
+         None, gemv_bytes),
     ):
         ms, pms = best(fk, fp)
+        lib = "none" if fl is None else f"{benchmark_function(fl):.4f} ms"
         log(f"time {label}: kernel {ms:.4f} ms {nbytes / ms / 1e6:.1f} GB/s | "
-            f"plain {pms:.4f} ms {nbytes / pms / 1e6:.1f} GB/s")
+            f"plain {pms:.4f} ms {nbytes / pms / 1e6:.1f} GB/s | library {lib} | "
+            f"bound {bound(nbytes, 2 * N_GEMV**2)[0]:.4f} ms")
     del a32, x32
 
     return [
         {"name": "dot", "route": "cuda", "source": "accblas_tpu_torch/csrc/dot.cu",
          "replaces": "accblas_tpu/ops/dot.py:136", "launches": launches["dot"],
-         "max_abs_err": max_abs["dot"], "ms": dot_ms, "plain_ms": dot_plain_ms},
+         "max_abs_err": max_abs["dot"], "ms": dot_ms, "plain_ms": dot_plain_ms,
+         "bound_ms": dot_bound, "bound_by": dot_by, "library_ms": dot_lib_ms},
         {"name": "gemv", "route": "cuda", "source": "accblas_tpu_torch/csrc/gemv.cu",
          "replaces": "accblas_tpu/ops/gemv.py:147", "launches": launches["gemv"],
-         "max_abs_err": max_abs["gemv"], "ms": gemv_ms, "plain_ms": gemv_plain_ms},
+         "max_abs_err": max_abs["gemv"], "ms": gemv_ms, "plain_ms": gemv_plain_ms,
+         "bound_ms": gemv_bound, "bound_by": gemv_by, "library_ms": gemv_lib_ms},
+    ]
+
+
+def profile_calls(label: str, fn, calls: int = 5):
+    """Device time by kernel name over `calls` calls of `fn` (torch.profiler,
+    "Self CUDA"), per call, and the calls' wall time: where a call's time
+    goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls * 1e3
+    rows = [(e.key, e.self_device_time_total / calls / 1e3, e.count // calls)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
+    for key, ms, count in rows[:8]:
+        log(f"  {ms:9.4f} ms/call  {count:4d} launches/call  {key[:90]}")
+
+
+def phase_main_trsv() -> list[dict]:
+    """The TRSV part of the main path (bench.py's TRSV at 16384), checked,
+    then timed: the whole calls, each kernel alone, the plain versions and
+    torch.linalg.solve_triangular."""
+    from accblas_tpu_torch import acc_trsv, trsv
+    from accblas_tpu_torch.ops import tri_gemv as trigops
+    from accblas_tpu_torch.ops import trsv as trsvops
+    from accblas_tpu_torch.utils import devgen
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    dev = torch.device("cuda", 0)
+    n = N_TRSV
+    # unit upper: the off-diagonals scaled by 1/n keep the substitution
+    # bounded (bench.py's operand)
+    a = devgen.gen_f32((n, n), SEED, "trsv_a", dev).mul_(1.0 / n)
+    b = torch.ones(n, device=dev)
+    torch.cuda.synchronize()
+
+    # ---- the main path, through the public API ----
+    trsvops.leaf_diag_launches = 0
+    trsvops.sweep_launches = 0
+    trigops.launches = 0
+    x32 = trsv(a, b, "upper", True)
+    xdf = acc_trsv(a, b, "upper", True, ar="df64")
+    res = trigops.tri_gemv_df64(a, x32, b, "upper", True)
+    torch.cuda.synchronize()
+    launches = {"trsv_leaf_diag": trsvops.leaf_diag_launches,
+                "trsv_sweep": trsvops.sweep_launches, "tri_gemv": trigops.launches}
+    log(f"main path launches: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"TRSV main path did not launch every kernel: {launches}")
+
+    # ---- its results against float64 and the plain versions, on the card ----
+    ref = _solve64(a, b, "upper", True)
+    max_abs = {}
+    for label, got, ar, tol in (("trsv fixed f32", x32, "f32", 1e-4),
+                                ("acc_trsv Acc<df64,f32>", xdf, "df64", 5e-6)):
+        plain = trsv_plain(a, b, "upper", True, ar, got.dtype)
+        k_err, p_err, kp = _rel1(got, ref), _rel1(plain, ref), _rel1(got, plain)
+        max_abs["trsv_sweep"] = max(max_abs.get("trsv_sweep", 0.0),
+                                    float((got - plain).abs().max()))
+        log(f"main {label} n={n} upper unit: shape={tuple(got.shape)} kernel_err={k_err:.3e} "
+            f"plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} bound={tol:.1e}")
+        if not (got.shape == b.shape and got.dtype == torch.float32
+                and bool(torch.isfinite(got).all()) and max(k_err, p_err) < tol
+                and kp < 2 * tol):
+            raise AssertionError(f"main-path {label} out of bounds")
+        del plain
+    del ref
+    tx = _tri64(a, "upper", True) @ x32.double()
+    rref, den = b.double() - tx, float(tx.abs().sum())
+    rplain = trigops._tri_gemv_plain(a, x32, b, False, True)
+    r_err = float((res.double() - rref).abs().sum()) / den
+    rp_err = float((rplain.double() - rref).abs().sum()) / den
+    max_abs["tri_gemv"] = float((res - rplain).abs().max())
+    log(f"main tri_gemv_df64 residual of the f32 solve: |r|_1={float(res.abs().sum()):.6e} "
+        f"kernel_err={r_err:.3e} plain_err={rp_err:.3e} bound=1.0e-06 (of |T x|_1)")
+    if not (bool(torch.isfinite(res).all()) and max(r_err, rp_err) < 1e-6):
+        raise AssertionError("main-path tri_gemv_df64 out of bounds")
+    del tx, rref, rplain
+    m = n // trsvops.LEAF
+    d_k = trsvops._extract_leaf_diag(a, m)
+    d_p = trsvops._extract_leaf_diag_plain(a, m)
+    max_abs["trsv_leaf_diag"] = float((d_k - d_p).abs().max())
+    if not torch.equal(d_k, d_p):
+        raise AssertionError("main-path leaf gather differs from its plain version")
+
+    # ---- timings: kernel, plain, plain, kernel ----
+    def best(fk, fp):
+        k1, p1, p2, k2 = (benchmark_function(f) for f in (fk, fp, fp, fk))
+        return min(k1, k2), min(p1, p2)
+
+    times = {}
+    times["trsv"] = best(lambda: trsv(a, b, "upper", True),
+                         lambda: trsv_plain(a, b, "upper", True, "f32", torch.float32))
+    times["acc_trsv_df64"] = best(
+        lambda: acc_trsv(a, b, "upper", True, ar="df64"),
+        lambda: trsv_plain(a, b, "upper", True, "df64", torch.float32))
+    times["leaf_diag"] = best(lambda: trsvops._extract_leaf_diag(a, m),
+                              lambda: trsvops._extract_leaf_diag_plain(a, m))
+    inv = trsvops._leaf_inverses(d_k, n, False, True)
+    bt = trsvops._rhs_panels(b.reshape(n, 1), n // trsvops.BLOCK)
+    for ar in ("f32", "df64"):
+        times[f"sweep_{ar}"] = best(
+            lambda: trsvops._trsv_sweep(a, inv, bt, False, ar, torch.float32),
+            lambda: trsvops._trsv_sweep_plain(a, inv, bt, False, ar, torch.float32))
+    times["inversion"] = (benchmark_function(lambda: trsvops._leaf_inverses(d_k, n, False, True)),
+                          None)
+    times["tri_gemv"] = best(lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
+                             lambda: trigops._tri_gemv_plain(a, x32, b, False, True))
+    # the one PyTorch call computing the same function: the yardsticks only
+    with trsvops.ieee_f32():
+        lib_solve = benchmark_function(
+            lambda: torch.linalg.solve_triangular(a, b.reshape(n, 1), upper=True,
+                                                  unitriangular=True))
+    lib_gather = benchmark_function(
+        lambda: a.as_strided((m, trsvops.LEAF, trsvops.LEAF), (trsvops.LEAF * (n + 1), n, 1))
+        .float())
+
+    tri = n * (n + 1) // 2
+    inv_bytes = m * trsvops.LEAF**2 * 4
+    bounds = {
+        # the triangle, the leaf inverses, b and x; 2 flops per element
+        "trsv_sweep": bound(tri * 4 + inv_bytes + 2 * n * 4, 2 * tri + 2 * n * trsvops.LEAF),
+        # each leaf tile read once and written once as f32
+        "trsv_leaf_diag": bound(2 * m * trsvops.LEAF**2 * 4, 0),
+        # the triangle, x, b and r; a product, a two_sum (6 ops), an add
+        "tri_gemv": bound(tri * 4 + 3 * n * 4, 8 * tri),
+    }
+    df_bound = bound(tri * 4 + inv_bytes + 2 * n * 4, 10 * tri)
+    profile_calls(f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True))
+    profile_calls(f"acc_trsv df64 n={n}", lambda: acc_trsv(a, b, "upper", True, ar="df64"))
+    for label, (ms, pms) in times.items():
+        log(f"time {label} n={n}: kernel {ms:.4f} ms"
+            + ("" if pms is None else f" | plain {pms:.4f} ms"))
+    log(f"time library torch.linalg.solve_triangular f32 n={n}: {lib_solve:.4f} ms | "
+        f"strided-copy leaf gather: {lib_gather:.4f} ms")
+    log(f"bounds: sweep f32 {bounds['trsv_sweep'][0]:.4f} ms ({bounds['trsv_sweep'][1]}), "
+        f"sweep df64 {df_bound[0]:.4f} ms ({df_bound[1]}), leaf gather "
+        f"{bounds['trsv_leaf_diag'][0]:.4f} ms, tri_gemv {bounds['tri_gemv'][0]:.4f} ms")
+
+    def entry(name, source, replaces, ms, pms, lib):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": max_abs[name], "ms": ms,
+                "plain_ms": pms, "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": lib}
+
+    return [
+        entry("trsv_leaf_diag", "accblas_tpu_torch/csrc/trsv.cu", "accblas_tpu/ops/trsv.py:119",
+              *times["leaf_diag"], lib_gather),
+        # the fixed f32 tier of the main path; the df64 tier's times are logged
+        entry("trsv_sweep", "accblas_tpu_torch/csrc/trsv.cu", "accblas_tpu/ops/trsv.py:244",
+              *times["sweep_f32"], lib_solve),
+        entry("tri_gemv", "accblas_tpu_torch/csrc/tri_gemv.cu",
+              "accblas_tpu/ops/tri_gemv.py:27", *times["tri_gemv"], None),
     ]
 
 
@@ -335,6 +652,7 @@ def main() -> int:
     phase_build()
     phase_checks()
     kernels = phase_main()
+    kernels += phase_main_trsv()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ import accblas_tpu_torch
 from accblas_tpu_torch.ops import df64 as tdf
 from accblas_tpu_torch.ops import dot as tdot
 from accblas_tpu_torch.ops import gemv as tgemv
+from accblas_tpu_torch.ops import tri_gemv as ttri
+from accblas_tpu_torch.ops import trsv as ttrsv
 from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx, interop, tolerance
 
 torch.set_num_threads(1)
@@ -181,3 +183,191 @@ def test_flagship_slice_on_cuda(cuda):
     assert err <= tolerance.TOL["f32"]
     ref = float(x64 @ x64)
     assert abs(float(d) - ref) / ref <= tolerance.TOL["f32"]
+
+
+# ---- TRSV/TRSM: the leaf gather and the sweep ----
+
+def _packed_lu(n, seed, device):
+    """The JAX tests' operand: the packed LU factor of a diagonally dominant
+    seeded matrix (float64 on the host), and a right-hand side."""
+    import scipy.linalg
+
+    a64 = gen_mtx(MatrixInfo(n, n), seed=seed) + np.eye(n) * (0.25 * n)
+    lu, _ = scipy.linalg.lu_factor(a64)
+    b = gen_mtx(MatrixInfo(1, n), seed=seed + 1)[0]
+    return (interop.from_numpy(lu.astype(np.float32), device=device),
+            interop.from_numpy(b.astype(np.float32), device=device))
+
+
+def _ldu(a):
+    """U's strict upper triangle scaled by U's diagonal (the LDU form): the
+    unit-upper operand. On the raw factor, unit-upper drops U's large
+    diagonal and is ill-conditioned (leaf inverses reach 1e4), outside the
+    envelope the JAX package's df64 tests hold."""
+    return torch.tril(a) + torch.triu(a, 1) / a.diagonal()[:, None]
+
+
+def _tri64(a, uplo, unit):
+    t = a.double()
+    t = torch.tril(t) if uplo == "lower" else torch.triu(t)
+    if unit:
+        t.fill_diagonal_(1.0)
+    return t
+
+
+def _solve64(a, b, uplo, unit):
+    """float64 solve of the stored triangle, on the card."""
+    b2 = b.double().reshape(b.shape[0], -1)
+    x = torch.linalg.solve_triangular(_tri64(a, uplo, unit), b2, upper=uplo != "lower")
+    return x.reshape(b.shape)
+
+
+def _rel1(got, ref):
+    got, ref = got.double().reshape(-1), ref.double().reshape(-1)
+    return float((got - ref).abs().sum() / ref.abs().sum())
+
+
+def _run_trsv(a, b, uplo, unit, ar, tol):
+    """The public acc_trsm/acc_trsv through the kernels, against the plain
+    sweep on the same inputs and against float64."""
+    vec = b.dim() == 1
+    before = (ttrsv.leaf_diag_launches, ttrsv.sweep_launches)
+    fn = accblas_tpu_torch.acc_trsv if vec else accblas_tpu_torch.acc_trsm
+    got = fn(a, b, uplo, unit, ar=ar, unstable_ok=True)
+    assert (ttrsv.leaf_diag_launches, ttrsv.sweep_launches) == (before[0] + 1, before[1] + 1)
+    n = a.shape[0]
+    nb = -(-n // ttrsv.BLOCK)
+    d = ttrsv._extract_leaf_diag_plain(a, nb * ttrsv.BLOCK // ttrsv.LEAF)
+    inv = ttrsv._leaf_inverses(d, n, uplo == "lower", unit)
+    bt = ttrsv._rhs_panels(b.reshape(n, -1), nb)
+    plain = ttrsv._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, got.dtype)
+    ref = _solve64(a, b, uplo, unit)
+    assert torch.isfinite(got).all()
+    err, perr = _rel1(got, ref), _rel1(plain, ref)
+    assert err < tol and perr < tol, (err, perr, tol)
+    assert _rel1(got, plain.reshape(got.shape)) < 2 * tol
+    return got
+
+
+_TRSV_TOL = {("f32", "f32"): 1e-4, ("df64", "f32"): 5e-6}
+
+
+def _trsv_tol(ar, st):
+    return _TRSV_TOL.get((ar, st), 1e-3)  # narrow storage: the bf16 bound
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+@pytest.mark.parametrize("uplo,unit", [("upper", True), ("lower", True), ("upper", False),
+                                       ("lower", False)])
+@pytest.mark.parametrize("n", [512, 700])
+def test_trsv_kernel_every_mode(cuda, n, uplo, unit, ar):
+    a, b = _packed_lu(n, 42, cuda)
+    if (uplo, unit) == ("upper", True):
+        a = _ldu(a)
+    _run_trsv(a, b, uplo, unit, ar, _trsv_tol(ar, "f32"))
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+@pytest.mark.parametrize("st", list(STORAGE))
+@pytest.mark.parametrize("uplo,unit", [("upper", False), ("lower", True)])
+def test_trsv_kernel_every_storage(cuda, st, uplo, unit, ar):
+    a, b = _packed_lu(1000, 7, cuda)
+    _run_trsv(a.to(STORAGE[st]), b, uplo, unit, ar, _trsv_tol(ar, st))
+
+
+@pytest.mark.parametrize("n", [1, 100, 1024, 2600])
+def test_trsv_kernel_sizes(cuda, n):
+    a, b = _packed_lu(n, 11, cuda)
+    for ar in ("f32", "df64"):
+        _run_trsv(a, b, "upper", False, ar, _trsv_tol(ar, "f32"))
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+@pytest.mark.parametrize("k", [3, 8])
+def test_trsm_kernel_matches_trsv_per_column(cuda, k, ar):
+    """Right-hand sides are independent, and the kernel sums each one in
+    the same order: a column of TRSM is the TRSV of that column, bit for bit."""
+    a, _ = _packed_lu(1000, 13, cuda)
+    bm = devgen.gen_f32((1000, k), 13, "trsv_b", cuda)
+    x = _run_trsv(a, bm, "lower", True, ar, _trsv_tol(ar, "f32"))
+    for c in range(k):
+        xc = accblas_tpu_torch.acc_trsv(a, bm[:, c].contiguous(), "lower", True, ar=ar)
+        assert torch.equal(x[:, c], xc)
+
+
+def test_trsv_kernel_result_storage_and_repeats(cuda):
+    a, b = _packed_lu(1000, 17, cuda)
+    for ar in ("f32", "df64"):
+        first = accblas_tpu_torch.acc_trsv(a, b, "upper", False, ar=ar)
+        for _ in range(3):
+            assert torch.equal(first, accblas_tpu_torch.acc_trsv(a, b, "upper", False, ar=ar))
+    bh = b.to(torch.float16)
+    got = _run_trsv(a.to(torch.float16), bh, "upper", False, "df64", 1e-3)
+    assert got.dtype == torch.float16
+    assert accblas_tpu_torch.trsv(a, b.to(torch.bfloat16), unit=False).dtype == torch.bfloat16
+
+
+def test_trsv_kernel_unaligned_matrix(cuda):
+    """A 4 bytes past a 16-byte boundary: the element-wise loads."""
+    a, b = _packed_lu(640, 19, cuda)
+    buf = torch.empty(640 * 640 + 1, device=cuda)
+    buf[1:] = a.reshape(-1)
+    _run_trsv(buf[1:].view(640, 640), b, "upper", False, "df64", 5e-6)
+
+
+@pytest.mark.parametrize("st", list(STORAGE))
+@pytest.mark.parametrize("n", [1000, 1024])
+def test_leaf_gather_kernel_bits(cuda, st, n):
+    a = devgen.gen_f32((n, n), 23, "gemv_a", cuda).to(STORAGE[st])
+    m = -(-n // ttrsv.BLOCK) * ttrsv.BLOCK // ttrsv.LEAF
+    before = ttrsv.leaf_diag_launches
+    got = ttrsv._extract_leaf_diag(a, m)
+    assert ttrsv.leaf_diag_launches == before + 1
+    assert torch.equal(got, ttrsv._extract_leaf_diag_plain(a, m))
+
+
+def test_trsv_kernels_reject_what_they_do_not_take(cuda):
+    a, b = _packed_lu(64, 29, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        accblas_tpu_torch.trsv(a.t(), b)
+    with pytest.raises(ValueError, match="different devices"):
+        accblas_tpu_torch.trsv(a, b.cpu())
+
+
+# ---- the triangular residual ----
+
+@pytest.mark.parametrize("st", list(STORAGE))
+@pytest.mark.parametrize("uplo,unit", [("upper", True), ("lower", True), ("upper", False),
+                                       ("lower", False)])
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_tri_gemv_kernel(cuda, n, uplo, unit, st):
+    a = devgen.gen_f32((n, n), 31, "gemv_a", cuda).to(STORAGE[st])
+    x = devgen.gen_f32((n,), 31, "gemv_x", cuda)
+    b = devgen.gen_f32((n,), 31, "trsv_b", cuda)
+    before = ttri.launches
+    got = ttri.tri_gemv_df64(a, x, b, uplo, unit)
+    assert ttri.launches == before + 1
+    plain = ttri._tri_gemv_plain(a, x, b, uplo == "lower", unit)
+    tx = _tri64(a, uplo, unit) @ x.double()
+    ref, den = b.double() - tx, float(tx.abs().sum())
+    err = float((got.double() - ref).abs().sum()) / den
+    perr = float((plain.double() - ref).abs().sum()) / den
+    assert err < 1e-6 and perr < 1e-6, (err, perr)
+    assert float((got.double() - plain.double()).abs().sum()) / den < 2e-6
+    assert torch.equal(got, ttri.tri_gemv_df64(a, x, b, uplo, unit))
+
+
+def test_tri_gemv_kernel_unaligned_and_poisoned(cuda):
+    """Element-wise loads on an unaligned A; NaN outside the triangle and on
+    a unit diagonal never reaches the result."""
+    n = 777
+    a = devgen.gen_f32((n, n), 37, "gemv_a", cuda)
+    x = devgen.gen_f32((n,), 37, "gemv_x", cuda)
+    b = devgen.gen_f32((n,), 37, "trsv_b", cuda)
+    want = ttri.tri_gemv_df64(a, x, b, "upper", True)
+    poisoned = torch.where(torch.ones(n, n, dtype=torch.bool, device=cuda).triu(1), a,
+                           float("nan"))
+    buf = torch.empty(n * n + 1, device=cuda)
+    buf[1:] = poisoned.reshape(-1)
+    got = ttri.tri_gemv_df64(buf[1:].view(n, n), x, b, "upper", True)
+    assert torch.equal(got, want)

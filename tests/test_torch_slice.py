@@ -1,5 +1,6 @@
-"""The DOT/GEMV slice as a whole: the flagship ops through both packages'
-public APIs on the same seeded data, and the port's independence from JAX."""
+"""The port as a whole: the flagship ops through both packages' public APIs
+on the same seeded data, the public surface, and the port's independence
+from JAX."""
 
 import os
 import subprocess
@@ -16,6 +17,8 @@ import accblas_tpu_torch
 from __graft_entry__ import entry
 from accblas_tpu_torch.ops import dot as tdot
 from accblas_tpu_torch.ops import gemv as tgemv
+from accblas_tpu_torch.ops import tri_gemv as ttri
+from accblas_tpu_torch.ops import trsv as ttrsv
 from accblas_tpu_torch.utils import MatrixInfo, gen_mtx, interop, tolerance
 
 torch.set_num_threads(1)
@@ -79,12 +82,13 @@ def test_public_surface_mirrors_the_reference():
         assert name in accblas_tpu.__all__
         assert callable(getattr(accblas_tpu_torch, name))
     missing = set(accblas_tpu.__all__) - set(accblas_tpu_torch.__all__)
-    assert missing == {"trsv", "acc_trsv", "xla_trsv", "trsm", "acc_trsm", "xla_trsm"}
+    assert missing == set()
 
 
 def test_port_imports_no_jax():
     code = (
         "import sys, accblas_tpu_torch, accblas_tpu_torch.ops.dot, accblas_tpu_torch.ops.gemv, "
+        "accblas_tpu_torch.ops.trsv, accblas_tpu_torch.ops.tri_gemv, "
         "accblas_tpu_torch.ops._build, accblas_tpu_torch.ops.common, "
         "accblas_tpu_torch.utils.bench, accblas_tpu_torch.utils.tolerance; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
@@ -103,9 +107,20 @@ def test_chip_smoke_refuses_without_a_card():
     assert '"ok"' not in res.stdout and "kernels" not in res.stdout
 
 
+def _launches():
+    return (tdot.launches, tgemv.launches, ttrsv.leaf_diag_launches, ttrsv.sweep_launches,
+            ttri.launches)
+
+
 def test_plain_path_on_cpu_launches_nothing():
     a, x, r = _flagship_inputs()
-    before = (tdot.launches, tgemv.launches)
+    before = _launches()
     accblas_tpu_torch.acc_gemv(a, x, r, 1.0, 1.0, ar="f32")
     accblas_tpu_torch.acc_dot(x, x, ar="f32")
-    assert (tdot.launches, tgemv.launches) == before
+    n = 600
+    t = torch.triu(interop.from_numpy(gen_mtx(MatrixInfo(n, n), seed=45).astype(np.float32)) / n)
+    b = torch.ones(n)
+    accblas_tpu_torch.trsv(t, b)
+    accblas_tpu_torch.acc_trsv(t, b, ar="df64")
+    ttri.tri_gemv_df64(t, b, b)
+    assert _launches() == before
