@@ -3,67 +3,80 @@
 //
 // Replaces the two Pallas kernels of accblas_tpu/ops/trsv.py:
 //   `_extract_leaf_diag.kern` (:119) -> `leaf_diag` below: gathers the
-//     kLeaf x kLeaf diagonal tiles of A as f32, zero past n (the identity
-//     past n is added by the batched inversion, ops/trsv.py
-//     `_masked_tri_inverse`). It moves n * kLeaf elements each way, a few
-//     microseconds; one block per tile with row-contiguous loads suffices.
-//   `_trsv_kernel` (:244) -> `trsv_offdiag` + `trsv_diag`, chained by
-//     `accblas_trsv_sweep`.
+//     kLeaf x kLeaf diagonal tiles of A as f32 and masks them to the
+//     triangle in the same pass (what ops/common.py `tri_mask` does): the
+//     dead triangle is zero, the diagonal is one where `unit`, and lanes
+//     past n continue as the identity. It moves n * kLeaf elements each
+//     way, a few microseconds; one CTA per tile with row-contiguous 16-byte
+//     loads where A is aligned. The batched inversion of the masked tiles
+//     stays with cuBLAS (ops/trsv.py `_leaf_inverses`).
+//   `_trsv_kernel` (:244) -> `trsv_sweep`: the whole sweep in one launch.
 //
-// The TPU kernel walks the live triangle blocks on a sequential grid and
-// carries the solved x and the running correction in VMEM scratch. Blocks
-// of a CUDA grid run in parallel and in no order, so here the order lives
-// on the stream instead: one C entry point walks the nb block rows in
-// dependency order (the upper triangle from the bottom up) and, for each,
-// launches
-//   (a) `trsv_offdiag`: corr[row] = sum over solved columns c of
-//       A[row, c] * x[c], one warp per row of the block row and one CTA per
-//       (8 rows, kChunk columns, KP right-hand sides); every CTA writes its
-//       partial sums to scratch, so there are no atomics and results repeat;
-//   (b) `trsv_diag`: one CTA per KP right-hand sides folds the partials in a
-//       fixed order, forms rhs - corr, and substitutes through the diagonal
-//       block a leaf at a time with the pre-inverted leaves, then publishes
-//       x (hi and lo words for df64) to device scratch and writes the
-//       result, cast to the storage of the output. Its leaf steps form a
-//       serial chain inside one CTA, so they are written for latency: the
-//       CTA first asks for its whole diagonal block and leaf inverses in L2
-//       (prefetch); then each leaf row is split over kGroup threads, and
-//       each thread loads all of its columns into registers before it sums
-//       them, so that all of a leaf's loads are in flight at once.
-// Stream order makes each block row's x visible to the launches after it.
+// The TPU kernel walks the live triangle on a sequential grid and carries
+// the solved x in VMEM. Blocks of a CUDA grid run in parallel and in no
+// order, so `trsv_sweep` orders itself, as the reference's own kernel does
+// (cuda/trsv_kernels.cuh:69-235, after "A Fast Dense Triangular Solve in
+// CUDA", doi 10.1137/12088358X):
+//   - one CTA per block row of kLeaf rows and per panel of KP right-hand
+//     sides; a block row's diagonal block is exactly one pre-inverted leaf;
+//   - each CTA takes a ticket from an atomic counter of its panel, and the
+//     ticket, not blockIdx, names its block row in dependency order (from
+//     the bottom for upper, from the top for lower). A CTA waits only on
+//     smaller tickets, held by CTAs that have already started, so the sweep
+//     advances under any block scheduling order and for grids larger than
+//     the card holds at once;
+//   - a second counter per panel counts the block rows published. Before
+//     any wait a CTA loads its leaf-inverse row and the tile of the column
+//     block solved just before its own into registers; then it streams
+//     every column block published so far, polling again only when it has
+//     caught up, and adds A[rows, cols] * x[cols] in the order the blocks
+//     were solved;
+//   - once the block row before it has published, it adds that last tile,
+//     folds its lanes in a fixed order, forms b - corr, multiplies by the
+//     leaf inverse, stores x (hi and lo words for df64), and after a barrier
+//     publishes with a release store of the counter; the result is written
+//     in the output's storage after that, off the chain.
+// So the waiting CTAs stream the triangle while the chain advances, and the
+// chain is n / kLeaf steps of one tile-vector product, one lane fold and
+// one inverse product. x is read with __ldcg (L2, never the non-coherent
+// path); one thread per CTA polls with acquire loads and a __nanosleep
+// backoff and a barrier releases the rest. Every wait is bounded: after
+// kMaxPolls polls (seconds; a solve takes milliseconds) the kernel prints
+// which wait ran out and traps, so a protocol fault fails the run with a
+// CUDA error at the next synchronisation instead of hanging it.
+//
+// Sums: each right-hand side has its own accumulators, every thread adds
+// its columns in the order the blocks were solved, and lanes fold in a
+// fixed tree; only tickets and counters are atomic. Results repeat bit for
+// bit, and do not depend on KP or on when a block was streamed.
 //
 // What bounds it: the triangle is read once, n(n+1)/2 elements, about 2
 // flops each (f32), so the solve is bound by device-memory bytes: 537 MB
-// of f32 at n = 16384 is 0.16 ms at 3.35 TB/s. This first design is
-// further bound by its serial chain: 2 * nb launches, and n / kLeaf
-// dependent leaf steps, kBlock / kLeaf of them in each one-CTA diagonal
-// step; the off-diagonal launches stream the triangle at about 2 TB/s and
-// the leaf steps take most of the time (PERF.md). (A first form of the
-// diagonal step gave each leaf row to one warp, one dependent load per
-// step: 122 us per block row at n = 16384, 90% of the solve.) kBlock = 512
-// keeps the off-diagonal launches wide (64 row-warps x up to n / kChunk
-// column chunks) while the one-CTA diagonal step stays short (512^2 / 2
-// elements); kLeaf = 64 keeps each leaf inverse at 16 KB. Both were chosen
-// for this card, not taken from the TPU's tuning.
+// of f32 at n = 16384 is 0.16 ms at 3.35 TB/s. The chain of n / kLeaf
+// dependent steps, each a few L2 round trips (the counter, x, the release),
+// bounds it from the other side (PERF.md). kThreads = 256, no shared tiles
+// and __launch_bounds__(kThreads, 2) hold two CTAs on every SM, so the 256
+// block rows of n = 16384 are all resident at once on 132 SMs.
+// Matrix-vector work: no wgmma, no TMA.
 //
 // Arithmetic: f32 sums of f32 products; df64 carries x and the sums as
 // (hi, lo) pairs: exact products of A with x_hi (two_prod), f32 products
-// with x_lo, two_sum accumulation, df_add across warps and chunks.
+// with x_lo, two_sum accumulation, df_add across lanes.
+
+#include <cstdio>
 
 #include "reduce.cuh"
 
 namespace accblas {
 namespace {
 
-constexpr int kBlock = 512;          // rows of a block row (ops/trsv.py BLOCK)
-constexpr int kLeaf = 64;            // diagonal leaf (ops/trsv.py LEAF)
-constexpr int kNleaf = kBlock / kLeaf;
-constexpr int kChunk = 2048;         // columns per off-diagonal CTA (ops/trsv.py _CHUNK)
-constexpr int kWarps = 8;            // rows per off-diagonal CTA, one warp each
-constexpr int kDiagThreads = 512;    // threads of the one-CTA diagonal step
-constexpr int kGroup = kDiagThreads / kLeaf;  // threads per leaf row in it
-constexpr int kDeps = (kBlock - kLeaf) / kGroup;  // the most columns one thread sums
-constexpr int kLeafThreads = 256;    // threads per leaf tile of the gather
+constexpr int kLeaf = 64;                // rows of a block row (ops/trsv.py LEAF)
+constexpr int kTpr = 4;                  // threads per row of a tile
+constexpr int kThreads = kLeaf * kTpr;   // threads of a CTA
+constexpr int kCols = kLeaf / kTpr;      // columns of a tile per thread
+constexpr unsigned kMaxPolls = 1u << 21; // bound of one wait
+constexpr unsigned kSpinPolls = 64;      // polls before each poll sleeps
+constexpr unsigned kSleepNs = 256;       // the sleep between later polls
 
 // the arithmetic of the reductions: f32, or df_add over (hi, lo) pairs
 template <bool DF64>
@@ -122,272 +135,341 @@ __device__ __forceinline__ val_t<DF64> sub(val_t<DF64> a, val_t<DF64> b) {
   }
 }
 
-template <class SA>
-__global__ void __launch_bounds__(kLeafThreads)
-    leaf_diag(const SA* __restrict__ A, int64_t n, float* __restrict__ d) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLeaf;
-  float* tile = d + static_cast<int64_t>(blockIdx.x) * kLeaf * kLeaf;
-  for (int e = threadIdx.x; e < kLeaf * kLeaf; e += kLeafThreads) {
-    const int64_t r = base + e / kLeaf;
-    const int64_t c = base + e % kLeaf;
-    tile[e] = (r < n && c < n) ? load_f32(A[r * n + c]) : 0.f;
-  }
-}
-
-// (a) partial corrections of block row rows [row0, row0 + kBlock) over the
-// columns [c0, c1) of this CTA's chunk, for right-hand sides [p0, p0 + KP)
-template <class SA, bool DF64, int KP>
-__global__ void __launch_bounds__(kWarps * 32)
-    trsv_offdiag(const SA* __restrict__ A, int64_t n, int64_t npad,
-                 const float* __restrict__ xhi, const float* __restrict__ xlo, int64_t k,
-                 int64_t row0, int64_t col0, int64_t col1, float* __restrict__ part_hi,
-                 float* __restrict__ part_lo, int vec_ok) {
-  constexpr int V = 16 / sizeof(SA);
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int64_t row = row0 + r;
-  const int64_t c0 = col0 + static_cast<int64_t>(blockIdx.y) * kChunk;
-  const int64_t c1 = c0 + kChunk < col1 ? c0 + kChunk : col1;
-  const int64_t p0 = static_cast<int64_t>(blockIdx.z) * KP;
-  DotAcc<DF64> acc[KP];
-  auto add = [&](float a, int64_t c) {
-#pragma unroll
-    for (int q = 0; q < KP; ++q) {
-      if (p0 + q < k) {
-        const int64_t i = (p0 + q) * npad + c;
-        acc[q].add(a, xhi[i], DF64 ? xlo[i] : 0.f);
-      }
-    }
-  };
-  if (row < n) {  // rows past n keep zero partials
-    const SA* arow = A + row * n;
-    if (vec_ok) {
-#pragma unroll 4
-      for (int64_t j = c0 / V + lane; j < c1 / V; j += 32) {
-        const Pack<SA, V> pk = load_pack<SA, V>(arow + j * V);
-#pragma unroll
-        for (int e = 0; e < V; ++e) add(load_f32(pk.v[e]), j * V + e);
-      }
-    } else {
-      for (int64_t c = c0 + lane; c < c1; c += 32) add(load_f32(arow[c]), c);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < KP; ++q) {
-    const val_t<DF64> v = warp_reduce<kRed<DF64>>(acc[q].value());
-    if (lane == 0 && p0 + q < k) {
-      const int64_t o = (static_cast<int64_t>(blockIdx.y) * k + p0 + q) * kBlock + r;
-      part_hi[o] = hi_of(v);
-      if constexpr (DF64) part_lo[o] = lo_of(v);
-    }
-  }
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-
-// sum over the kGroup consecutive lanes of a leaf row's group; valid in the
-// group's first lane
+// sum over the kTpr consecutive lanes of a row, (l0 + l2) + (l1 + l3);
+// valid in the row's first lane
 template <bool DF64>
-__device__ __forceinline__ val_t<DF64> group_reduce(val_t<DF64> v) {
+__device__ __forceinline__ val_t<DF64> row_fold(val_t<DF64> v) {
 #pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1) v = combine<kRed<DF64>>(v, shfl_down(v, off));
+  for (int off = kTpr / 2; off > 0; off >>= 1) v = combine<kRed<DF64>>(v, shfl_down(v, off));
   return v;
 }
 
-// (b) the diagonal step of block row bi for right-hand sides [p0, p0 + KP)
-template <class SA, bool DF64, int KP>
-__global__ void __launch_bounds__(kDiagThreads)
-    trsv_diag(const SA* __restrict__ A, int64_t n, int64_t npad, const float* __restrict__ inv,
-              const float* __restrict__ bt, int64_t k, int64_t bi, int nchunks,
-              const float* __restrict__ part_hi, const float* __restrict__ part_lo,
-              float* __restrict__ xhi, float* __restrict__ xlo, void* out, int out_st,
-              int lower) {
-  // v holds rhs - corr, and a leaf's x once that leaf is solved
-  __shared__ float vh[KP][kBlock], vl[KP][kBlock];
-  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * KP;
-  const int64_t row0 = bi * kBlock;
-  const int g = threadIdx.x % kGroup;   // the thread's place in its row's group
-  const int il = threadIdx.x / kGroup;  // its row within a leaf
-  const float* linv = inv + bi * kNleaf * kLeaf * kLeaf;
+// ---- the leaf gather ----
 
-  // ask for the diagonal block and its leaf inverses in L2 at once: the
-  // leaf steps below then wait on L2, not on device memory
-  const int64_t rows = n - row0 < kBlock ? n - row0 : kBlock;
-  const int lines = static_cast<int>((rows * sizeof(SA) + 127) / 128);
-  for (int e = threadIdx.x; e < rows * lines; e += kDiagThreads) {
-    prefetch_l2(reinterpret_cast<const char*>(A + (row0 + e / lines) * n + row0) +
-                (e % lines) * 128);
-  }
-  for (int e = threadIdx.x; e < kNleaf * kLeaf * kLeaf * 4 / 128; e += kDiagThreads) {
-    prefetch_l2(reinterpret_cast<const char*>(linv) + e * 128);
-  }
-
-  for (int e = threadIdx.x; e < KP * kBlock; e += kDiagThreads) {
-    const int q = e / kBlock, r = e % kBlock;
-    val_t<DF64> v = make_val<DF64>(0.f, 0.f);
-    if (p0 + q < k) {
-      val_t<DF64> corr = make_val<DF64>(0.f, 0.f);
-      for (int c = 0; c < nchunks; ++c) {
-        const int64_t o = (c * k + p0 + q) * kBlock + r;
-        corr = combine<kRed<DF64>>(corr, make_val<DF64>(part_hi[o], DF64 ? part_lo[o] : 0.f));
-      }
-      v = sub<DF64>(make_val<DF64>(bt[(p0 + q) * npad + row0 + r], 0.f), corr);
-    }
-    vh[q][r] = hi_of(v);
-    vl[q][r] = lo_of(v);
-  }
-  __syncthreads();
-
-  // each leaf row belongs to a group of kGroup threads, which split its
-  // columns; all kDiagThreads threads load at once
-  for (int t = 0; t < kNleaf; ++t) {
-    const int s = lower ? t : kNleaf - 1 - t;
-    const int i = s * kLeaf + il;
-    // the leaf's rows minus the solved leaves of this block
-    const int d0 = lower ? 0 : (s + 1) * kLeaf;
-    const int d1 = lower ? s * kLeaf : kBlock;
-    if (d1 > d0) {
-      // every load first, into registers, so that they are all in flight
-      // together; then the sums
-      const int64_t row = row0 + i;
-      const bool live = row < n;
-      const SA* arow = A + (live ? row : 0) * n + row0;
-      float av[kDeps];
+// tile blockIdx.x of d: A[base + i, base + j] as f32 on the live triangle
+// inside n, one on the diagonal where `unit` or past n, zero elsewhere
+template <class SA>
+__global__ void __launch_bounds__(kThreads)
+    leaf_diag(const SA* __restrict__ A, int64_t n, float* __restrict__ d, int lower, int unit,
+              int vec_ok) {
+  constexpr int V = 16 / sizeof(SA);
+  constexpr int VR = kLeaf / V;  // vectors per tile row
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLeaf;
+  float* tile = d + static_cast<int64_t>(blockIdx.x) * kLeaf * kLeaf;
+  for (int e = threadIdx.x; e < kLeaf * VR; e += kThreads) {
+    const int i = e / VR, j0 = (e % VR) * V;
+    const int64_t row = base + i, col = base + j0;
+    // the vector holds a live element only if it reaches the triangle
+    const bool live = row < n && col < n && (lower ? j0 <= i : j0 + V - 1 >= i);
+    float v[V];
+    if (live && vec_ok) {
+      const Pack<SA, V> pk = load_pack<SA, V>(A + row * n + col);
 #pragma unroll
-      for (int u = 0; u < kDeps; ++u) {
-        const int c = d0 + g + u * kGroup;
-        av[u] = (live && c < d1 && row0 + c < n) ? load_f32(arow[c]) : 0.f;
-      }
-      DotAcc<DF64> acc[KP];
+      for (int u = 0; u < V; ++u) v[u] = load_f32(pk.v[u]);
+    } else {
 #pragma unroll
-      for (int u = 0; u < kDeps; ++u) {
-        const int c = d0 + g + u * kGroup;
-        if (c < d1) {
-#pragma unroll
-          for (int q = 0; q < KP; ++q) acc[q].add(av[u], vh[q][c], vl[q][c]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < KP; ++q) {
-        const val_t<DF64> dep = group_reduce<DF64>(acc[q].value());
-        if (g == 0) {
-          const val_t<DF64> v = sub<DF64>(make_val<DF64>(vh[q][i], vl[q][i]), dep);
-          vh[q][i] = hi_of(v);
-          vl[q][i] = lo_of(v);
-        }
-      }
-      __syncthreads();
-    }
-    // x_j = sum_i inv[j][i] * r_i through the pre-inverted leaf, j = il
-    const float* li = linv + (s * kLeaf + il) * kLeaf;
-    float w[kLeaf / kGroup];
-#pragma unroll
-    for (int u = 0; u < kLeaf / kGroup; ++u) w[u] = li[g + u * kGroup];
-    DotAcc<DF64> acc[KP];
-#pragma unroll
-    for (int u = 0; u < kLeaf / kGroup; ++u) {
-      const int c = s * kLeaf + g + u * kGroup;
-#pragma unroll
-      for (int q = 0; q < KP; ++q) acc[q].add(w[u], vh[q][c], vl[q][c]);
-    }
-    val_t<DF64> x[KP];
-#pragma unroll
-    for (int q = 0; q < KP; ++q) x[q] = group_reduce<DF64>(acc[q].value());
-    __syncthreads();  // every group has read the leaf's r
-    if (g == 0) {
-#pragma unroll
-      for (int q = 0; q < KP; ++q) {
-        vh[q][i] = hi_of(x[q]);
-        vl[q][i] = lo_of(x[q]);
+      for (int u = 0; u < V; ++u) {
+        v[u] = live && col + u < n ? load_f32(A[row * n + col + u]) : 0.f;
       }
     }
-    __syncthreads();
-  }
-
-  // publish x for the block rows after this one, and store the result
-  for (int e = threadIdx.x; e < KP * kBlock; e += kDiagThreads) {
-    const int q = e / kBlock, r = e % kBlock;
-    if (p0 + q >= k) continue;
-    const int64_t row = row0 + r;
-    xhi[(p0 + q) * npad + row] = vh[q][r];
-    if constexpr (DF64) xlo[(p0 + q) * npad + row] = vl[q][r];
-    if (row < n) {
-      store_code(out, row * k + p0 + q, out_st, DF64 ? __fadd_rn(vh[q][r], vl[q][r]) : vh[q][r]);
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int j = j0 + u;
+      const bool keep = (lower ? i >= j : i <= j) && row < n && base + j < n;
+      v[u] = keep ? v[u] : 0.f;
+      if (i == j && (unit || row >= n)) v[u] = 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < V; u += 4) {
+      *reinterpret_cast<float4*>(tile + i * kLeaf + j0 + u) =
+          make_float4(v[u], v[u + 1], v[u + 2], v[u + 3]);
     }
   }
 }
 
-template <class SA, bool DF64, int KP>
-cudaError_t sweep(const SA* A, int64_t n, int64_t nb, const float* inv, const float* bt,
-                  int64_t k, float* xhi, float* xlo, float* part_hi, float* part_lo, void* out,
-                  int out_st, int lower, int vec_ok, cudaStream_t s) {
-  const int64_t npad = nb * kBlock;
-  const unsigned panels = static_cast<unsigned>((k + KP - 1) / KP);
-  for (int64_t step = 0; step < nb; ++step) {
-    const int64_t bi = lower ? step : nb - 1 - step;
-    const int64_t row0 = bi * kBlock;
-    // the solved columns: all blocks before a lower row, after an upper one
-    const int64_t col0 = lower ? 0 : row0 + kBlock;
-    const int64_t col1 = lower ? row0 : n;
-    const int nchunks = col1 > col0 ? static_cast<int>((col1 - col0 + kChunk - 1) / kChunk) : 0;
-    if (nchunks > 0) {
-      trsv_offdiag<SA, DF64, KP><<<dim3(kBlock / kWarps, nchunks, panels), kWarps * 32, 0, s>>>(
-          A, n, npad, xhi, xlo, k, row0, col0, col1, part_hi, part_lo, vec_ok);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
+// ---- the sweep ----
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// CTA-wide: wait until *done >= target and return what was read. Thread 0
+// polls; the barriers order the other threads' later loads of x after its
+// acquire, and keep *s from being rewritten before every thread read it.
+__device__ unsigned wait_published(const unsigned* done, unsigned target, unsigned* s,
+                                   unsigned ticket) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v = ld_acquire(done);
+    for (unsigned polls = 1; v < target; ++polls) {
+      if (polls == kMaxPolls) {
+        printf("accblas trsv_sweep: panel %u, ticket %u waited %u polls for block row %u to "
+               "publish (counter at %u); trapping\n",
+               blockIdx.y, ticket, kMaxPolls, target - 1, v);
+        __trap();
+      }
+      if (polls >= kSpinPolls) __nanosleep(kSleepNs);
+      v = ld_acquire(done);
     }
-    trsv_diag<SA, DF64, KP><<<panels, kDiagThreads, 0, s>>>(
-        A, n, npad, inv, bt, k, bi, nchunks, part_hi, part_lo, xhi, xlo, out, out_st, lower);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    *s = v;
   }
-  return cudaSuccess;
+  __syncthreads();
+  return *s;
+}
+
+// V consecutive floats through L2 (x is written by other CTAs during the
+// launch, so never through the non-coherent path)
+template <int V>
+__device__ __forceinline__ void load_cg(float (&v)[V], const float* p) {
+#pragma unroll
+  for (int u = 0; u < V; u += 4) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(p + u));
+    v[u] = q.x;
+    v[u + 1] = q.y;
+    v[u + 2] = q.z;
+    v[u + 3] = q.w;
+  }
+}
+
+// the thread's kCols columns of a tile row: vectors g, g + kTpr, ... of V
+// elements, so that a warp's loads cover whole rows; zero past n
+template <class SA>
+__device__ __forceinline__ void load_tile(float (&av)[kCols], const SA* arow, bool live,
+                                          int64_t c0, int64_t n, int g, int vec_ok) {
+  constexpr int V = 16 / sizeof(SA);
+#pragma unroll
+  for (int u = 0; u < kCols / V; ++u) {
+    const int64_t c = c0 + (g + kTpr * u) * V;
+    if (vec_ok) {  // n is a multiple of V: a vector lies wholly inside n or past it
+      if (live && c < n) {
+        const Pack<SA, V> pk = load_pack<SA, V>(arow + c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) av[u * V + e] = load_f32(pk.v[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) av[u * V + e] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        av[u * V + e] = live && c + e < n ? load_f32(arow[c + e]) : 0.f;
+      }
+    }
+  }
+}
+
+// acc[q] += the tile's columns (those of load_tile) times x[c0 + ...]
+template <class SA, bool DF64, int KP>
+__device__ __forceinline__ void add_tile(DotAcc<DF64> (&acc)[KP], const float (&av)[kCols],
+                                         const float* xhi, const float* xlo, int64_t npad,
+                                         int64_t p0, int64_t k, int64_t c0, int g) {
+  constexpr int V = 16 / sizeof(SA);
+#pragma unroll
+  for (int q = 0; q < KP; ++q) {
+    if (p0 + q < k) {
+      const int64_t o = (p0 + q) * npad + c0;
+#pragma unroll
+      for (int u = 0; u < kCols / V; ++u) {
+        float h[V], l[V];
+        load_cg<V>(h, xhi + o + (g + kTpr * u) * V);
+        if constexpr (DF64) load_cg<V>(l, xlo + o + (g + kTpr * u) * V);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[q].add(av[u * V + e], h[e], DF64 ? l[e] : 0.f);
+      }
+    }
+  }
+}
+
+// The whole sweep for the right-hand sides [p0, p0 + KP), p0 = blockIdx.y * KP.
+// sync holds two counters per panel: tickets taken, block rows published.
+template <class SA, bool DF64, int KP>
+__global__ void __launch_bounds__(kThreads, 2)
+    trsv_sweep(const SA* __restrict__ A, int64_t n, int nr, int64_t npad,
+               const float* __restrict__ inv, const float* __restrict__ bt, int64_t k,
+               float* xhi, float* xlo, unsigned* sync, void* out, int out_st, int lower,
+               int vec_ok) {
+  __shared__ unsigned s_val;
+  __shared__ float rh[KP][kLeaf], rl[KP][kLeaf];  // b - corr of the block row
+  const int r = threadIdx.x / kTpr;  // the thread's row in the block row
+  const int g = threadIdx.x % kTpr;  // its place among the row's lanes
+  const int64_t p0 = static_cast<int64_t>(blockIdx.y) * KP;
+  unsigned* tickets = sync + 2 * blockIdx.y;
+  const unsigned* done = tickets + 1;
+
+  if (threadIdx.x == 0) s_val = atomicAdd(tickets, 1u);
+  __syncthreads();
+  const int t = static_cast<int>(s_val);
+  // the block row (and column block) solved at ticket j
+  auto block_of = [&](int j) { return lower ? j : nr - 1 - j; };
+  const int bi = block_of(t);
+  const int64_t row = static_cast<int64_t>(bi) * kLeaf + r;
+  const bool live = row < n;
+  const SA* arow = A + (live ? row : 0) * n;
+
+  // before any wait: the leaf inverse's row r (columns as in load_tile for
+  // f32; the leaf is column-major, as cuBLAS returns the batched solve), and
+  // the tile of the block solved just before this one
+  float w[kCols];
+  const float* li = inv + static_cast<int64_t>(bi) * kLeaf * kLeaf;
+#pragma unroll
+  for (int u = 0; u < kCols / 4; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[u * 4 + e] = __ldg(li + ((g + kTpr * u) * 4 + e) * kLeaf + r);
+  }
+  float alast[kCols];
+  if (t > 0) {
+    load_tile<SA>(alast, arow, live, static_cast<int64_t>(block_of(t - 1)) * kLeaf, n, g, vec_ok);
+  }
+  float b[KP];
+#pragma unroll
+  for (int q = 0; q < KP; ++q) b[q] = g == 0 && p0 + q < k ? bt[(p0 + q) * npad + row] : 0.f;
+
+  // stream every published column block but the last, in solve order
+  DotAcc<DF64> acc[KP];
+  int avail = 0;  // block rows known to be published
+  for (int j = 0; j + 1 < t;) {
+    if (j >= avail) avail = static_cast<int>(wait_published(done, j + 1, &s_val, t));
+    const int64_t c0 = static_cast<int64_t>(block_of(j)) * kLeaf;
+    float a0[kCols];
+    load_tile<SA>(a0, arow, live, c0, n, g, vec_ok);
+    if (j + 2 < t && j + 1 < avail) {  // two tiles' loads in flight at once
+      const int64_t c1 = static_cast<int64_t>(block_of(j + 1)) * kLeaf;
+      float a1[kCols];
+      load_tile<SA>(a1, arow, live, c1, n, g, vec_ok);
+      add_tile<SA, DF64, KP>(acc, a0, xhi, xlo, npad, p0, k, c0, g);
+      add_tile<SA, DF64, KP>(acc, a1, xhi, xlo, npad, p0, k, c1, g);
+      j += 2;
+    } else {
+      add_tile<SA, DF64, KP>(acc, a0, xhi, xlo, npad, p0, k, c0, g);
+      j += 1;
+    }
+  }
+  // the chain: the block row before this one, then this one
+  if (t > 0) {
+    if (t > avail) wait_published(done, t, &s_val, t);
+    add_tile<SA, DF64, KP>(acc, alast, xhi, xlo, npad, p0, k,
+                           static_cast<int64_t>(block_of(t - 1)) * kLeaf, g);
+  }
+#pragma unroll
+  for (int q = 0; q < KP; ++q) {
+    const val_t<DF64> corr = row_fold<DF64>(acc[q].value());
+    if (g == 0) {
+      const val_t<DF64> v = sub<DF64>(make_val<DF64>(b[q], 0.f), corr);
+      rh[q][r] = hi_of(v);
+      rl[q][r] = lo_of(v);
+    }
+  }
+  __syncthreads();
+
+  // x_r = sum_c inv[r][c] * (b - corr)_c through the pre-inverted leaf
+  DotAcc<DF64> xa[KP];
+#pragma unroll
+  for (int u = 0; u < kCols / 4; ++u) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = (g + kTpr * u) * 4 + e;
+#pragma unroll
+      for (int q = 0; q < KP; ++q) xa[q].add(w[u * 4 + e], rh[q][c], rl[q][c]);
+    }
+  }
+  val_t<DF64> x[KP];
+#pragma unroll
+  for (int q = 0; q < KP; ++q) {
+    x[q] = row_fold<DF64>(xa[q].value());
+    if (g == 0 && p0 + q < k) {
+      const int64_t o = (p0 + q) * npad + row;
+      __stcg(xhi + o, hi_of(x[q]));
+      if constexpr (DF64) __stcg(xlo + o, lo_of(x[q]));
+    }
+  }
+  // publish: the barrier orders every thread's x stores before thread 0's
+  // release store of the counter, which makes them visible with it (the
+  // pattern of CUTLASS's semaphore)
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(tickets + 1, static_cast<unsigned>(t + 1));
+  // the result, off the chain
+#pragma unroll
+  for (int q = 0; q < KP; ++q) {
+    if (g == 0 && p0 + q < k && live) {
+      store_code(out, row * k + p0 + q, out_st,
+                 DF64 ? __fadd_rn(hi_of(x[q]), lo_of(x[q])) : hi_of(x[q]));
+    }
+  }
+}
+
+// calls f(Tag<SA>, DF64 as std::bool_constant, KP as std::integral_constant)
+// for the run-time storage code, tier and number of right-hand sides k: a
+// panel of KP = 1 right-hand side for TRSV, of KP = 4 for TRSM
+template <class F>
+cudaError_t with_sweep(int a_st, int df, int64_t k, F&& f) {
+  using K1 = std::integral_constant<int, 1>;
+  using K4 = std::integral_constant<int, 4>;
+  return with_storage(a_st, [&](auto ta) {
+    if (df) return k == 1 ? f(ta, std::true_type{}, K1{}) : f(ta, std::true_type{}, K4{});
+    return k == 1 ? f(ta, std::false_type{}, K1{}) : f(ta, std::false_type{}, K4{});
+  });
 }
 
 }  // namespace
 }  // namespace accblas
 
 // A: n x n row-major (storage a_st); d: m x kLeaf x kLeaf floats receiving
-// the diagonal leaf tiles, m * kLeaf >= n. Returns cudaGetLastError().
+// the masked diagonal leaf tiles, m * kLeaf >= n. vec_ok: A 16-byte aligned
+// and n a multiple of the vector width. Returns cudaGetLastError().
 extern "C" int accblas_leaf_diag(const void* A, int a_st, int64_t n, float* d, int64_t m,
-                                 void* stream) {
+                                 int lower, int unit, int vec_ok, void* stream) {
   using namespace accblas;
   return with_storage(a_st, [&](auto ta) {
     using SA = typename decltype(ta)::type;
-    leaf_diag<SA><<<static_cast<unsigned>(m), kLeafThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(static_cast<const SA*>(A), n, d);
+    leaf_diag<SA><<<static_cast<unsigned>(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const SA*>(A), n, d, lower, unit, vec_ok);
     return cudaGetLastError();
   });
 }
 
-// A: n x n row-major (storage a_st), nb = ceil(n / kBlock) block rows,
-// npad = nb * kBlock. inv: (nb * kBlock / kLeaf, kLeaf, kLeaf) leaf inverses
-// (identity past n); bt: (k, npad) f32 right-hand sides, zero past n.
-// xhi (and xlo for df64): (k, npad) f32 scratch for the published x;
-// part_hi/part_lo: (ceil(npad / kChunk), k, kBlock) f32 scratch.
-// out: (n, k) row-major in storage out_st. vec_ok: A 16-byte aligned and n a
-// multiple of the vector width. Launches 2 * nb - 1 kernels on `stream`;
-// returns the first launch error, or 0.
-extern "C" int accblas_trsv_sweep(const void* A, int a_st, int64_t n, int64_t nb,
+// A: n x n row-major (storage a_st). inv: (>= ceil(n / kLeaf), kLeaf, kLeaf)
+// leaf inverses (identity past n), column-major per leaf. bt: (k, npad) f32
+// right-hand sides, zero past n, npad >= ceil(n / kLeaf) * kLeaf. xhi (and
+// xlo for df64): (k, npad) f32 scratch for the published x; sync: 2 * k
+// unsigned counters (two per panel are used), zeroed here. out: (n, k) row-major in
+// storage out_st. vec_ok: A 16-byte aligned and n a multiple of the vector
+// width. One memset and one kernel launch on `stream`; returns the first
+// error, or 0.
+extern "C" int accblas_trsv_sweep(const void* A, int a_st, int64_t n, int64_t npad,
                                   const float* inv, const float* bt, int64_t k, float* xhi,
-                                  float* xlo, float* part_hi, float* part_lo, void* out,
-                                  int out_st, int lower, int df, int vec_ok, void* stream) {
+                                  float* xlo, unsigned* sync, void* out, int out_st, int lower,
+                                  int df, int vec_ok, void* stream) {
   using namespace accblas;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_storage(a_st, [&](auto ta) {
+  const int nr = static_cast<int>((n + kLeaf - 1) / kLeaf);
+  return with_sweep(a_st, df, k, [&](auto ta, auto dft, auto kpt) {
     using SA = typename decltype(ta)::type;
-    const SA* a = static_cast<const SA*>(A);
-    if (df) {
-      return k == 1 ? sweep<SA, true, 1>(a, n, nb, inv, bt, k, xhi, xlo, part_hi, part_lo, out,
-                                         out_st, lower, vec_ok, s)
-                    : sweep<SA, true, 4>(a, n, nb, inv, bt, k, xhi, xlo, part_hi, part_lo, out,
-                                         out_st, lower, vec_ok, s);
-    }
-    return k == 1 ? sweep<SA, false, 1>(a, n, nb, inv, bt, k, xhi, xlo, part_hi, part_lo, out,
-                                        out_st, lower, vec_ok, s)
-                  : sweep<SA, false, 4>(a, n, nb, inv, bt, k, xhi, xlo, part_hi, part_lo, out,
-                                        out_st, lower, vec_ok, s);
+    constexpr bool DF64 = decltype(dft)::value;
+    constexpr int KP = decltype(kpt)::value;
+    const unsigned panels = static_cast<unsigned>((k + KP - 1) / KP);
+    const cudaError_t err = cudaMemsetAsync(sync, 0, 2 * panels * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
+    trsv_sweep<SA, DF64, KP><<<dim3(nr, panels), kThreads, 0, s>>>(
+        static_cast<const SA*>(A), n, nr, npad, inv, bt, k, xhi, xlo, sync, out, out_st,
+        lower, vec_ok);
+    return cudaGetLastError();
+  });
+}
+
+// CTAs of the sweep (storage a_st, df64 or f32, k right-hand sides) that one
+// SM holds at once, into *blocks: with the SM count, the largest grid
+// resident at once.
+extern "C" int accblas_trsv_sweep_occupancy(int a_st, int df, int64_t k, int* blocks) {
+  using namespace accblas;
+  return with_sweep(a_st, df, k, [&](auto ta, auto dft, auto kpt) {
+    using SA = typename decltype(ta)::type;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, trsv_sweep<SA, decltype(dft)::value, decltype(kpt)::value>, kThreads, 0);
   });
 }

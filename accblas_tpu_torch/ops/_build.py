@@ -9,6 +9,7 @@ at import time: the CPU tests import every module on machines without nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 from ..accessor import dtypes
 
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 # run-time codes of the kernels' template parameters (csrc/accessor.cuh)
 STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "f8e4m3": 3, "f8e5m2": 4}
@@ -105,12 +109,32 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def function(lib: str, name: str, argtypes):
-    """C entry point `name` of csrc/<lib>.cu, with its argument types set.
+    """C entry point `name` of csrc/<lib>.cu, with its argument types set;
+    cached per (library, entry point), so a call costs a dict lookup.
     Every entry point returns a cudaError_t as an int."""
-    fn = getattr(load(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _functions.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(lib, name)] = fn
     return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream of CUDA tensor t's device, for a
+    launch through ctypes (no Stream object is made)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes CUDA tensor t's device current for a launch;
+    nothing to switch when it already is."""
+    idx = t.get_device()
+    return _CURRENT if torch.cuda.current_device() == idx else torch.cuda.device(idx)
 
 
 def tier(ar: str, precise: bool, op: str) -> str:

@@ -76,14 +76,13 @@ def _dot_cuda(x: torch.Tensor, y: torch.Tensor, tier: str, init: float):
     work = n // vec if vec_ok else n
     nblocks = max(1, min(_MAX_BLOCKS, -(-work // _THREADS)))
     fn = _build.function("dot", "accblas_dot", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        partials = torch.empty(2 * nblocks, dtype=torch.float32, device=x.device)
-        out = torch.empty(2, dtype=torch.float32, device=x.device)
+    partials = torch.empty(2 * nblocks, dtype=torch.float32, device=x.device)
+    out = torch.empty(2, dtype=torch.float32, device=x.device)
+    with _build.on_device(x):
         err = fn(x.data_ptr(), sx, y.data_ptr(), sy, n, _build.TIER_CODE[tier], int(vec_ok),
-                 init, partials.data_ptr(), nblocks, out.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(err, "dot kernel launch")
-        launches += 1
+                 init, partials.data_ptr(), nblocks, out.data_ptr(), _build.stream(x))
+    _build.check(err, "dot kernel launch")
+    launches += 1
     return out[0], out[1]
 
 

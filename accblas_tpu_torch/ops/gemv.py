@@ -90,21 +90,20 @@ def _gemv_cuda(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
         raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
     vec = 16 // max(a.element_size(), x.element_size())
     vec_ok = a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0 and n % vec == 0
-    with torch.cuda.device(a.device):
-        if df_out:
-            out = torch.empty(m, dtype=torch.float32, device=a.device)
-            out_lo = torch.empty(m, dtype=torch.float32, device=a.device)
-        else:
-            out = torch.empty(m, dtype=res.dtype, device=a.device)
-            out_lo = None
-        if m > 0:
-            fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
+    if df_out:
+        out = torch.empty(m, dtype=torch.float32, device=a.device)
+        out_lo = torch.empty(m, dtype=torch.float32, device=a.device)
+    else:
+        out = torch.empty(m, dtype=res.dtype, device=a.device)
+        out_lo = None
+    if m > 0:
+        fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
+        with _build.on_device(a):
             err = fn(a.data_ptr(), sa, x.data_ptr(), sx, res.data_ptr(), sr, out.data_ptr(),
                      None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
-                     _build.TIER_CODE[tier], _block_cols(n), int(vec_ok),
-                     torch.cuda.current_stream(a.device).cuda_stream)
-            _build.check(err, "gemv kernel launch")
-            launches += 1
+                     _build.TIER_CODE[tier], _block_cols(n), int(vec_ok), _build.stream(a))
+        _build.check(err, "gemv kernel launch")
+        launches += 1
     return dfm.DF(out, out_lo) if df_out else out
 
 

@@ -59,14 +59,14 @@ def _tri_gemv_cuda(a, x, b, lower: bool, unit: bool) -> torch.Tensor:
         raise ValueError("tri_gemv kernel needs a row-major contiguous A")
     vec_ok = a.data_ptr() % 16 == 0 and n % (16 // a.element_size()) == 0
     x, b = x.contiguous(), b.contiguous()
-    with torch.cuda.device(a.device):
-        r = torch.empty(n, dtype=torch.float32, device=a.device)
-        if n > 0:
-            fn = _build.function("tri_gemv", "accblas_tri_gemv", _ARGTYPES)
+    r = torch.empty(n, dtype=torch.float32, device=a.device)
+    if n > 0:
+        fn = _build.function("tri_gemv", "accblas_tri_gemv", _ARGTYPES)
+        with _build.on_device(a):
             err = fn(a.data_ptr(), sa, n, x.data_ptr(), b.data_ptr(), r.data_ptr(), int(lower),
-                     int(unit), int(vec_ok), torch.cuda.current_stream(a.device).cuda_stream)
-            _build.check(err, "tri_gemv kernel launch")
-            launches += 1
+                     int(unit), int(vec_ok), _build.stream(a))
+        _build.check(err, "tri_gemv kernel launch")
+        launches += 1
     return r
 
 

@@ -12,18 +12,22 @@
 
 Every solve is a blocked sweep in two phases, as in the JAX package:
 
-1. the ``LEAF`` x ``LEAF`` diagonal tiles of A are gathered as f32
-   (``_extract_leaf_diag``), masked to the triangle (identity past n) and
-   inverted in a batch by ``torch.linalg.solve_triangular``;
-2. the sweep walks the ``BLOCK``-row block rows in dependency order, each
-   taking off the solved columns' correction and then substituting through
-   its diagonal block a leaf at a time (``_trsv_sweep``).
+1. the ``LEAF`` x ``LEAF`` diagonal tiles of A are gathered as f32 and
+   masked to the triangle, identity past n (``_extract_leaf_diag``), then
+   inverted in a batch by ``torch.linalg.solve_triangular``
+   (``_leaf_inverses``);
+2. the sweep walks the block rows in dependency order, each taking off the
+   solved columns' correction and then multiplying through its diagonal
+   leaves' inverses (``_trsv_sweep``).
 
 A CUDA tensor runs the hand-written kernels of ``csrc/trsv.cu`` (which
 replace the Pallas kernels ``_extract_leaf_diag.kern`` and ``_trsv_kernel``
-of ``accblas_tpu.ops.trsv``); a CPU tensor runs ``_extract_leaf_diag_plain``
-and ``_trsv_sweep_plain``, the same functions in plain torch ops. Nothing
-falls back from one to the other. Counterpart of ``accblas_tpu.ops.trsv``.
+of ``accblas_tpu.ops.trsv``): the masked gather, and a sweep of one launch
+whose CTAs, one per ``LEAF``-row block row, order themselves by tickets. A
+CPU tensor runs ``_extract_leaf_diag_plain`` and ``_trsv_sweep_plain``, the
+same functions in plain torch ops; the plain sweep keeps the JAX kernel's
+``BLOCK``-row arithmetic. Nothing falls back from one to the other.
+Counterpart of ``accblas_tpu.ops.trsv``.
 """
 
 from __future__ import annotations
@@ -39,12 +43,11 @@ from . import _build
 from . import df64 as dfm
 from .common import route, tri_mask
 
-# rows of a sweep block row, and of a diagonal leaf (csrc/trsv.cu kBlock,
-# kLeaf): chosen for the H100, see the note at the top of csrc/trsv.cu
+# rows of a block row of the plain sweep (the JAX kernel's), and of a
+# diagonal leaf, which is also a block row of the CUDA sweep (csrc/trsv.cu
+# kLeaf); the right-hand sides are padded to whole BLOCKs
 BLOCK = 512
 LEAF = 64
-# columns per CTA of the off-diagonal kernel (csrc/trsv.cu kChunk)
-_CHUNK = 2048
 
 # beyond this n the bf16-storage recurrence error reaches the percent range
 # on LU-factor triangles (the JAX package's measurement) — the tier is
@@ -56,13 +59,17 @@ leaf_diag_launches = 0
 sweep_launches = 0
 
 _LEAF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-                  ctypes.c_int64, ctypes.c_void_p]
+                  ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SWEEP_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+_OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+
+# the identity right-hand side of the batched inversion, per (device, size)
+_EYE: dict = {}
 
 
 @contextlib.contextmanager
@@ -82,9 +89,11 @@ def ieee_f32():
 # phase 1: leaf gather and batched inversion
 # --------------------------------------------------------------------------
 
-def _extract_leaf_diag_plain(a: torch.Tensor, m: int) -> torch.Tensor:
-    """The m diagonal LEAF x LEAF tiles of A as (m, LEAF, LEAF) f32, zero
-    past n: a strided view and a cast, the same bits as the kernel."""
+def _extract_leaf_diag_plain(a: torch.Tensor, m: int, lower: bool, unit: bool) -> torch.Tensor:
+    """The m diagonal LEAF x LEAF tiles of A as (m, LEAF, LEAF) f32, masked
+    to the triangle with a unit diagonal if asked, the identity past n
+    (``tri_mask``): a strided view, a cast and the mask, the same bits as
+    the kernel."""
     n = a.shape[0]
     d = torch.zeros(m, LEAF, LEAF, dtype=torch.float32, device=a.device)
     full = min(m, n // LEAF)
@@ -95,55 +104,56 @@ def _extract_leaf_diag_plain(a: torch.Tensor, m: int) -> torch.Tensor:
     r0 = full * LEAF
     if full < m and r0 < n:
         d[full, : n - r0, : n - r0] = a[r0:, r0:].float()
-    return d
+    offs = torch.arange(m, device=a.device) * LEAF
+    return tri_mask(d, lower, unit, n=n, offs=offs)
 
 
-def _extract_leaf_diag_cuda(a: torch.Tensor, m: int) -> torch.Tensor:
-    """Launch csrc/trsv.cu `leaf_diag` on the current stream."""
+def _extract_leaf_diag_cuda(a: torch.Tensor, m: int, lower: bool, unit: bool) -> torch.Tensor:
+    """Launch csrc/trsv.cu `leaf_diag` (gather and mask) on the current stream."""
     global leaf_diag_launches
     n = a.shape[0]
     sa = _build.storage_code(a, "trsv A")
     if not a.is_contiguous():
         raise ValueError("trsv kernels need a row-major contiguous A")
-    with torch.cuda.device(a.device):
-        d = torch.empty(m, LEAF, LEAF, dtype=torch.float32, device=a.device)
-        fn = _build.function("trsv", "accblas_leaf_diag", _LEAF_ARGTYPES)
-        err = fn(a.data_ptr(), sa, n, d.data_ptr(), m,
-                 torch.cuda.current_stream(a.device).cuda_stream)
-        _build.check(err, "leaf_diag kernel launch")
-        leaf_diag_launches += 1
+    vec_ok = a.data_ptr() % 16 == 0 and n % (16 // a.element_size()) == 0
+    d = torch.empty(m, LEAF, LEAF, dtype=torch.float32, device=a.device)
+    fn = _build.function("trsv", "accblas_leaf_diag", _LEAF_ARGTYPES)
+    with _build.on_device(a):
+        err = fn(a.data_ptr(), sa, n, d.data_ptr(), m, int(lower), int(unit), int(vec_ok),
+                 _build.stream(a))
+    _build.check(err, "leaf_diag kernel launch")
+    leaf_diag_launches += 1
     return d
 
 
-def _extract_leaf_diag(a: torch.Tensor, m: int) -> torch.Tensor:
+def _extract_leaf_diag(a: torch.Tensor, m: int, lower: bool, unit: bool) -> torch.Tensor:
     if route("trsv leaf gather", a) == "cuda":
-        return _extract_leaf_diag_cuda(a, m)
-    return _extract_leaf_diag_plain(a, m)
+        return _extract_leaf_diag_cuda(a, m, lower, unit)
+    return _extract_leaf_diag_plain(a, m, lower, unit)
 
 
-def _masked_tri_inverse(d: torch.Tensor, lower: bool, unit: bool, *, n=None, offs=None):
-    """Inverse of a (g, s, s) stack of triangular blocks: zero the dead
-    triangle, force a unit diagonal if asked, and, with per-block row
-    offsets `offs` against a logical size `n`, continue past-n lanes as
-    identity so padding solves to x = 0. Solved against the identity by
-    ``torch.linalg.solve_triangular`` in genuine f32 (``ieee_f32``)."""
+def _leaf_inverses(d: torch.Tensor, lower: bool) -> torch.Tensor:
+    """Phase 1: the inverses of the masked leaves `d` (m, LEAF, LEAF),
+    solved against the identity by ``torch.linalg.solve_triangular`` in
+    genuine f32 (``ieee_f32``). Unlike the JAX package's they are not
+    transposed, and they stay in the layout the solve returns (column-major
+    per leaf from cuBLAS), which the sweep kernel reads as it is."""
     s = d.shape[-1]
-    d = tri_mask(d, lower, unit, n=n, offs=offs)
-    eye = torch.eye(s, dtype=torch.float32, device=d.device).expand(d.shape)
+    eye = _EYE.get((d.device, s))
+    if eye is None:
+        eye = _EYE[(d.device, s)] = torch.eye(s, dtype=torch.float32, device=d.device)
     with ieee_f32():
-        return torch.linalg.solve_triangular(d, eye, upper=not lower)
+        return torch.linalg.solve_triangular(d, eye.expand(d.shape), upper=not lower)
 
 
-def _leaf_inverses(d: torch.Tensor, n: int, lower: bool, unit: bool) -> torch.Tensor:
-    """Phase 1: the inverses of the gathered diagonal leaves `d`
-    (m, LEAF, LEAF) of an n x n matrix, masked to the triangle, identity
-    past n for ragged n. Unlike the JAX package's they are not transposed:
-    the kernel reads a row of the inverse per output."""
-    m = d.shape[0]
-    ragged = n != m * LEAF
-    offs = torch.arange(m, device=d.device) * LEAF if ragged else None
-    inv = _masked_tri_inverse(d, lower, unit, n=n if ragged else None, offs=offs)
-    return inv.contiguous()  # cuBLAS returns the solve column-major
+def _check_inverses(inv: torch.Tensor, n: int):
+    """The sweep kernel reads (m, LEAF, LEAF) leaf inverses column-major per
+    leaf, the layout of the batched solve's result, m * LEAF >= n."""
+    if inv.dim() != 3 or inv.shape[1:] != (LEAF, LEAF) or inv.stride() != (LEAF * LEAF, 1, LEAF):
+        raise ValueError(f"trsv sweep: leaf inverses of shape {tuple(inv.shape)} and strides "
+                         f"{inv.stride()} are not column-major (m, {LEAF}, {LEAF}) leaves")
+    if inv.shape[0] * LEAF < n:
+        raise ValueError(f"trsv sweep: {inv.shape[0]} leaf inverses do not cover n={n}")
 
 
 def _rhs_panels(b2: torch.Tensor, nb: int) -> torch.Tensor:
@@ -213,37 +223,46 @@ def _trsv_sweep_plain(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tens
 
 
 def _trsv_sweep_cuda(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tensor:
-    """Launch the csrc/trsv.cu sweep (2·nb − 1 kernels from one C call) on
+    """Launch the csrc/trsv.cu sweep (one counter memset and one kernel) on
     the current stream; X (n, k) in `out_dtype`."""
     global sweep_launches
     n = a.shape[0]
     k, npad = bt.shape
-    nb = npad // BLOCK
     sa = _build.storage_code(a, "trsv A")
     so = _build.STORAGE_CODE[dtypes.canon(out_dtype)]
     if not a.is_contiguous():
         raise ValueError("trsv kernels need a row-major contiguous A")
-    if not (inv.is_contiguous() and bt.is_contiguous()):
-        raise ValueError("trsv sweep needs contiguous leaf inverses and right-hand sides")
+    if not bt.is_contiguous() or npad < n:
+        raise ValueError("trsv sweep needs contiguous right-hand sides padded to whole LEAFs")
+    _check_inverses(inv, n)
     vec_ok = a.data_ptr() % 16 == 0 and n % (16 // a.element_size()) == 0
     df = ar == "df64"
-    f32 = dict(dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        out = torch.empty(n, k, dtype=out_dtype, device=a.device)
-        x_hi = torch.empty(k, npad, **f32)
-        x_lo = torch.empty(k, npad, **f32) if df else None
-        chunks = max(1, -(-npad // _CHUNK))
-        part_hi = torch.empty(chunks, k, BLOCK, **f32)
-        part_lo = torch.empty(chunks, k, BLOCK, **f32) if df else None
-        fn = _build.function("trsv", "accblas_trsv_sweep", _SWEEP_ARGTYPES)
-        err = fn(a.data_ptr(), sa, n, nb, inv.data_ptr(), bt.data_ptr(), k, x_hi.data_ptr(),
-                 None if x_lo is None else x_lo.data_ptr(), part_hi.data_ptr(),
-                 None if part_lo is None else part_lo.data_ptr(), out.data_ptr(), so,
-                 int(lower), int(df), int(vec_ok),
-                 torch.cuda.current_stream(a.device).cuda_stream)
-        _build.check(err, "trsv sweep launch")
-        sweep_launches += 1
+    # one scratch buffer: the published x (hi, and lo for df64), then room
+    # for two 32-bit counters per panel of right-hand sides
+    nx = (2 if df else 1) * k * npad
+    scratch = torch.empty(nx + 2 * k, dtype=torch.float32, device=a.device)
+    out = torch.empty(n, k, dtype=out_dtype, device=a.device)
+    x_hi = scratch.data_ptr()
+    fn = _build.function("trsv", "accblas_trsv_sweep", _SWEEP_ARGTYPES)
+    with _build.on_device(a):
+        err = fn(a.data_ptr(), sa, n, npad, inv.data_ptr(), bt.data_ptr(), k, x_hi,
+                 x_hi + 4 * k * npad if df else None, x_hi + 4 * nx, out.data_ptr(), so,
+                 int(lower), int(df), int(vec_ok), _build.stream(a))
+    _build.check(err, "trsv sweep launch")
+    sweep_launches += 1
     return out
+
+
+def sweep_occupancy(a_dtype=torch.float32, ar: str = "f32", k: int = 1) -> int:
+    """CTAs of the CUDA sweep that one SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); times the SM count,
+    the most block rows of LEAF that run at once."""
+    blocks = ctypes.c_int(0)
+    fn = _build.function("trsv", "accblas_trsv_sweep_occupancy", _OCCUPANCY_ARGTYPES)
+    err = fn(_build.STORAGE_CODE[dtypes.canon(a_dtype)], int(ar == "df64"), k,
+             ctypes.byref(blocks))
+    _build.check(err, "trsv sweep occupancy")
+    return blocks.value
 
 
 def _trsv_sweep(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tensor:
@@ -274,7 +293,7 @@ def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str 
         return torch.empty(n, k, dtype=out_dtype, device=a.device)
     lower = uplo == "lower"
     nb = -(-n // BLOCK)
-    inv = _leaf_inverses(_extract_leaf_diag(a, nb * BLOCK // LEAF), n, lower, unit)
+    inv = _leaf_inverses(_extract_leaf_diag(a, nb * BLOCK // LEAF, lower, unit), lower)
     return _trsv_sweep(a, inv, _rhs_panels(b, nb), lower, ar, out_dtype)
 
 

@@ -11,21 +11,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
      the TRSV/TRSM sweep in every mode, storage and tier, and the triangular
      residual, at n = 1000 (ragged) and 4096 on seeded LU factors, against
-     the plain versions and a float64 solve of the stored triangle; the leaf
-     gather bit for bit against its plain version;
+     the plain versions and a float64 solve of the stored triangle; the
+     masked leaf gather bit for bit against its plain version in every mode;
+     50 back-to-back TRSV and TRSM calls on one stream, bit for bit equal;
+     and a solve whose grid holds more block rows than the card holds
+     sweep CTAs at once (the occupancy is printed), against float64;
   4. main path at full size through the public API: acc_dot Acc<f32, bf16>
      at n = 2^29, acc_gemv Acc<f32, bf16> at 16384^2 (beta = 0), and the
      flagship 1024x2048 GEMV (alpha = beta = 1) from seeded host data; then
      trsv fixed f32 and acc_trsv Acc<df64, f32> at n = 16384 (upper, unit,
      A = uniform(-1, 1)/n, b = ones, as bench.py) and the df64 residual of
      the f32 solution (tri_gemv_df64); each checked against float64, with the
-     launch counters reset just before and read just after each path;
+     launch counters reset just before and read just after each path; the
+     TRSV calls are profiled (torch.profiler), and the sweep must be one
+     kernel launch per call;
   5. timing of each kernel, of its plain version and of the one PyTorch call
      that computes the same function, where there is one, at the main-path
      shapes (1 warm-up, 10 reps, minimum, CUDA events), beside the least time
-     the card could take (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s).
+     the card could take (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s);
+     and acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
+     against float64 and timed beside torch.linalg.solve_triangular.
 The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. A CUDA fault fails the run naming the phase;
+in a TRSV phase that includes the sweep's bounded spin-wait, which traps
+when a wait runs out (accblas_tpu_torch/csrc/trsv.cu).
 """
 
 from __future__ import annotations
@@ -98,6 +107,11 @@ class Checks:
         log(("ok   " if ok else "FAIL ") + line)
         if not ok:
             self.failures.append(line)
+
+    def raise_failures(self):
+        if self.failures:
+            raise AssertionError(f"{len(self.failures)} kernel checks failed:\n" +
+                                 "\n".join(self.failures))
 
 
 def _dot_case(chk: Checks, label: str, x, y, ar: str, precise=False, init=None, fixed=False):
@@ -212,8 +226,9 @@ def trsv_plain(a, b, uplo: str, unit: bool, ar: str, out_dtype):
 
     n = a.shape[0]
     nb = -(-n // trsvops.BLOCK)
-    d = trsvops._extract_leaf_diag_plain(a, nb * trsvops.BLOCK // trsvops.LEAF)
-    inv = trsvops._leaf_inverses(d, n, uplo == "lower", unit)
+    lower = uplo == "lower"
+    d = trsvops._extract_leaf_diag_plain(a, nb * trsvops.BLOCK // trsvops.LEAF, lower, unit)
+    inv = trsvops._leaf_inverses(d, lower)
     bt = trsvops._rhs_panels(b.reshape(n, -1), nb)
     return trsvops._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, out_dtype).reshape(b.shape)
 
@@ -254,6 +269,51 @@ def _tri_gemv_case(chk: Checks, a, x, b, uplo: str, unit: bool):
                    f"bound=1.0e-06")
 
 
+def _repeat_check(chk: Checks, lu, b, bm):
+    """50 TRSV and 50 TRSM calls queued on one stream without a
+    synchronisation: each sweep resets its counters, and all results carry
+    the first call's bits."""
+    import accblas_tpu_torch
+
+    for ar in ("f32", "df64"):
+        xs = [accblas_tpu_torch.acc_trsv(lu, b, "upper", False, ar=ar) for _ in range(50)]
+        ms = [accblas_tpu_torch.acc_trsm(lu, bm, "lower", True, ar=ar) for _ in range(50)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(xs[0], x) for x in xs[1:]) and all(
+            torch.equal(ms[0], m) for m in ms[1:])
+        chk.record(same, f"trsv/trsm {ar} n={lu.shape[0]} k=1 and {bm.shape[1]}: 50 back-to-back "
+                         f"calls each on one stream, bits repeat={same}")
+
+
+def _progress_check(chk: Checks, dev):
+    """A grid of more block rows than the card holds sweep CTAs at once, on
+    the main path's operand: the tickets keep the sweep advancing."""
+    import accblas_tpu_torch
+    from accblas_tpu_torch.ops import trsv as trsvops
+    from accblas_tpu_torch.utils import devgen
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = {(ar, k): trsvops.sweep_occupancy(torch.float32, ar, k)
+           for ar in ("f32", "df64") for k in (1, 4)}
+    resident = occ[("f32", 1)] * sms
+    log(f"trsv sweep occupancy (CTAs of {trsvops.LEAF * 4} threads per SM, f32 A): "
+        + ", ".join(f"{ar} k{'=1' if k == 1 else '>1'}: {v}" for (ar, k), v in occ.items())
+        + f"; x {sms} SMs = {resident} resident for f32 k=1; "
+        f"n={N_TRSV} has {N_TRSV // trsvops.LEAF} block rows")
+    n = max(20000, trsvops.LEAF * (resident + 49) + 17)
+    nr = -(-n // trsvops.LEAF)
+    a = devgen.gen_f32((n, n), SEED, "trsv_a", dev).mul_(1.0 / n)
+    b = torch.ones(n, device=dev)
+    x = accblas_tpu_torch.trsv(a, b, "upper", True)
+    ref = _solve64(a, b, "upper", True)
+    err = _rel1(x, ref)
+    ok = nr > resident and bool(torch.isfinite(x).all()) and err < 1e-4
+    chk.record(ok, f"trsv fixed f32 n={n} upper unit: {nr} block rows > {resident} resident "
+                   f"CTAs, err={err:.3e} bound=1.0e-04")
+    del a, b, x, ref
+    torch.cuda.empty_cache()
+
+
 def trsv_checks(chk: Checks, dev):
     from accblas_tpu_torch.ops import trsv as trsvops
     from accblas_tpu_torch.utils import devgen
@@ -280,13 +340,20 @@ def trsv_checks(chk: Checks, dev):
         m = -(-n // trsvops.BLOCK) * trsvops.BLOCK // trsvops.LEAF
         # f8e5m2: the factor's diagonal (n/4) overflows e4m3 to NaN
         for st in (torch.float32, bf, torch.float8_e5m2):
-            same = torch.equal(trsvops._extract_leaf_diag(lu.to(st), m).view(torch.int32),
-                               trsvops._extract_leaf_diag_plain(lu.to(st), m).view(torch.int32))
-            chk.record(same, f"leaf gather {st} n={n}: bits equal to the plain version={same}")
+            same = all(
+                torch.equal(trsvops._extract_leaf_diag(lu.to(st), m, lower, unit).view(torch.int32),
+                            trsvops._extract_leaf_diag_plain(lu.to(st), m, lower, unit)
+                            .view(torch.int32))
+                for lower in (False, True) for unit in (False, True))
+            chk.record(same, f"masked leaf gather {st} n={n}, 4 modes: bits equal to the plain "
+                             f"version={same}")
+        if n == 4096:
+            _repeat_check(chk, lu, b, devgen.gen_f32((n, 3), SEED, "trsv_b", dev))
         x = devgen.gen_f32((n,), SEED, "gemv_x", dev)
         _tri_gemv_case(chk, lu, x, b, "upper", False)
         _tri_gemv_case(chk, lu.to(bf), x, b, "lower", True)
         del lu, ldu, b
+    _progress_check(chk, dev)
 
 
 def phase_checks():
@@ -334,11 +401,15 @@ def phase_checks():
         _gemv_case(chk, "Acc<df64,bf16> beta=0 res=NaN", ab, xb, nan, 1.0, 0.0, "df64")
         del a, x, r, ab, xb
 
-    trsv_checks(chk, dev)
     torch.cuda.synchronize()
-    if chk.failures:
-        raise AssertionError(f"{len(chk.failures)} kernel checks failed:\n" +
-                             "\n".join(chk.failures))
+    chk.raise_failures()
+
+
+def phase_trsv_checks():
+    chk = Checks()
+    trsv_checks(chk, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    chk.raise_failures()
 
 
 # --------------------------------------------------------------------------
@@ -486,34 +557,74 @@ def phase_main() -> list[dict]:
     ]
 
 
-def profile_calls(label: str, fn, calls: int = 5):
-    """Device time by kernel name over `calls` calls of `fn` (torch.profiler,
-    "Self CUDA"), per call, and the calls' wall time: where a call's time
-    goes."""
+def profile_calls(label: str, fn, counted: dict, calls: int = 5) -> dict[str, tuple[float, float]]:
+    """Device time by kernel over `calls` calls of `fn` (torch.profiler,
+    "Self CUDA"), and the calls' wall time: where a call's time goes.
+    `counted` maps a name in a port kernel's symbol to a function reading
+    its wrapper's launch counter. The profiler drops a record now and then,
+    so a kernel's device ms per call is its mean time per record times the
+    launches its wrapper counted per call; a drop is logged. A port kernel
+    (namespace accblas) that no counter names, or more records than counted
+    launches, fails the run. Returns {name: (device ms, launches) per call}."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = {name: read() for name, read in counted.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / calls * 1e3
-    rows = [(e.key, e.self_device_time_total / calls / 1e3, e.count // calls)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    launched = {name: read() - before[name] for name, read in counted.items()}
+    # (symbol, total device ms, records, whether a device record)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count,
+                    e.device_type != DeviceType.CPU)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows if r[3]) / calls
     log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
-    for key, ms, count in rows[:8]:
-        log(f"  {ms:9.4f} ms/call  {count:4d} launches/call  {key[:90]}")
+    for key, ms, count, _ in rows[:8]:
+        log(f"  {ms / calls:9.4f} ms/call  {count:4d} records/{calls} calls  {key[:90]}")
+    for key, *_ in rows:
+        if "accblas::" in key and not any(name in key for name in counted):
+            raise AssertionError(f"{label}: port kernel no wrapper counted: {key[:90]}")
+    out = {}
+    for name, n in launched.items():
+        hits = [r for r in rows if name in r[0]]
+        records = sum(r[2] for r in hits)
+        if not 0 < records <= n:
+            raise AssertionError(f"{label}: {records} {name} kernel records for {n} counted "
+                                 f"launches")
+        if records < n:
+            log(f"  the profiler dropped {n - records} of {n} {name} records; its ms/call "
+                f"is the mean record times the counted launches")
+        out[name] = (sum(r[1] for r in hits) / records * n / calls, n / calls)
+    return out
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds per call of `fn`, called back to back (the card
+    keeps up with a short kernel): what a call costs before its launch."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn()
+        if i % 200 == 199:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def phase_main_trsv() -> list[dict]:
     """The TRSV part of the main path (bench.py's TRSV at 16384), checked,
     then timed: the whole calls, each kernel alone, the plain versions and
     torch.linalg.solve_triangular."""
-    from accblas_tpu_torch import acc_trsv, trsv
+    from accblas_tpu_torch import acc_trsm, acc_trsv, trsv
     from accblas_tpu_torch.ops import tri_gemv as trigops
     from accblas_tpu_torch.ops import trsv as trsvops
     from accblas_tpu_torch.utils import devgen
@@ -570,8 +681,8 @@ def phase_main_trsv() -> list[dict]:
         raise AssertionError("main-path tri_gemv_df64 out of bounds")
     del tx, rref, rplain
     m = n // trsvops.LEAF
-    d_k = trsvops._extract_leaf_diag(a, m)
-    d_p = trsvops._extract_leaf_diag_plain(a, m)
+    d_k = trsvops._extract_leaf_diag(a, m, False, True)
+    d_p = trsvops._extract_leaf_diag_plain(a, m, False, True)
     max_abs["trsv_leaf_diag"] = float((d_k - d_p).abs().max())
     if not torch.equal(d_k, d_p):
         raise AssertionError("main-path leaf gather differs from its plain version")
@@ -587,16 +698,18 @@ def phase_main_trsv() -> list[dict]:
     times["acc_trsv_df64"] = best(
         lambda: acc_trsv(a, b, "upper", True, ar="df64"),
         lambda: trsv_plain(a, b, "upper", True, "df64", torch.float32))
-    times["leaf_diag"] = best(lambda: trsvops._extract_leaf_diag(a, m),
-                              lambda: trsvops._extract_leaf_diag_plain(a, m))
-    inv = trsvops._leaf_inverses(d_k, n, False, True)
+    times["leaf_diag"] = best(lambda: trsvops._extract_leaf_diag(a, m, False, True),
+                              lambda: trsvops._extract_leaf_diag_plain(a, m, False, True))
+    inv = trsvops._leaf_inverses(d_k, False)
     bt = trsvops._rhs_panels(b.reshape(n, 1), n // trsvops.BLOCK)
     for ar in ("f32", "df64"):
         times[f"sweep_{ar}"] = best(
             lambda: trsvops._trsv_sweep(a, inv, bt, False, ar, torch.float32),
             lambda: trsvops._trsv_sweep_plain(a, inv, bt, False, ar, torch.float32))
-    times["inversion"] = (benchmark_function(lambda: trsvops._leaf_inverses(d_k, n, False, True)),
-                          None)
+    times["inversion"] = (benchmark_function(lambda: trsvops._leaf_inverses(d_k, False)), None)
+    times["phase1"] = (benchmark_function(
+        lambda: trsvops._leaf_inverses(trsvops._extract_leaf_diag(a, m, False, True), False)),
+        None)
     times["tri_gemv"] = best(lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
                              lambda: trigops._tri_gemv_plain(a, x32, b, False, True))
     # the one PyTorch call computing the same function: the yardsticks only
@@ -604,37 +717,88 @@ def phase_main_trsv() -> list[dict]:
         lib_solve = benchmark_function(
             lambda: torch.linalg.solve_triangular(a, b.reshape(n, 1), upper=True,
                                                   unitriangular=True))
-    lib_gather = benchmark_function(
-        lambda: a.as_strided((m, trsvops.LEAF, trsvops.LEAF), (trsvops.LEAF * (n + 1), n, 1))
-        .float())
+    # TRSM: each panel of 4 right-hand sides is a chain of its own, and the
+    # panels of k = 64 hold 16x the CTAs the card holds at once
+    for k in (8, 64):
+        bk = devgen.gen_f32((n, k), SEED, "trsv_b", dev)
+        xk = acc_trsm(a, bk, "upper", True, ar="f32")
+        err = _rel1(xk, _solve64(a, bk, "upper", True))
+        log(f"main acc_trsm Acc<f32,f32> n={n} k={k} upper unit: err={err:.3e} bound=1.0e-04")
+        if not (bool(torch.isfinite(xk).all()) and err < 1e-4):
+            raise AssertionError(f"acc_trsm k={k} out of bounds")
+        trsm_ms = benchmark_function(lambda: acc_trsm(a, bk, "upper", True, ar="f32"))
+        with trsvops.ieee_f32():
+            trsm_lib = benchmark_function(
+                lambda: torch.linalg.solve_triangular(a, bk, upper=True, unitriangular=True))
+        log(f"time acc_trsm f32 n={n} k={k}: kernel {trsm_ms:.4f} ms | "
+            f"torch.linalg.solve_triangular {trsm_lib:.4f} ms")
+        del bk, xk
+    # the diagonal tiles as a strided view: clone() copies them (the yardstick);
+    # float() of f32 storage returns the view itself, no kernel, so its time
+    # is the floor of a call timed with CUDA events
+    tiles = (m, trsvops.LEAF, trsvops.LEAF), (trsvops.LEAF * (n + 1), n, 1)
+    lib_gather = benchmark_function(lambda: a.as_strided(*tiles).clone())
+    event_floor = benchmark_function(lambda: a.as_strided(*tiles).float())
 
     tri = n * (n + 1) // 2
-    inv_bytes = m * trsvops.LEAF**2 * 4
+    leaf = trsvops.LEAF
+    # the triangle outside the diagonal leaves (n is a multiple of LEAF)
+    off = m * (m - 1) // 2 * leaf**2
+    inv_bytes = m * leaf**2 * 4
     bounds = {
-        # the triangle, the leaf inverses, b and x; 2 flops per element
-        "trsv_sweep": bound(tri * 4 + inv_bytes + 2 * n * 4, 2 * tri + 2 * n * trsvops.LEAF),
-        # each leaf tile read once and written once as f32
-        "trsv_leaf_diag": bound(2 * m * trsvops.LEAF**2 * 4, 0),
+        # the off-diagonal triangle, the leaf inverses, b and x; 2 flops per
+        # element and per inverse entry
+        "trsv_sweep": bound(off * 4 + inv_bytes + 2 * n * 4, 2 * off + 2 * n * leaf),
+        # the strict upper triangle of each tile read (unit), each tile
+        # written as f32
+        "trsv_leaf_diag": bound(m * (leaf * (leaf - 1) // 2 + leaf**2) * 4, 0),
         # the triangle, x, b and r; a product, a two_sum (6 ops), an add
         "tri_gemv": bound(tri * 4 + 3 * n * 4, 8 * tri),
     }
-    df_bound = bound(tri * 4 + inv_bytes + 2 * n * 4, 10 * tri)
-    profile_calls(f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True))
-    profile_calls(f"acc_trsv df64 n={n}", lambda: acc_trsv(a, b, "upper", True, ar="df64"))
+    df_bound = bound(off * 4 + inv_bytes + 2 * n * 4, 10 * off + 10 * n * leaf)
+
+    # where the device time of a call goes; the sweep is one launch per call
+    device_ms = {}
+    trsv_counted = {"trsv_sweep": lambda: trsvops.sweep_launches,
+                    "leaf_diag": lambda: trsvops.leaf_diag_launches}
+    for label, fn, ar in ((f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True), "f32"),
+                          (f"acc_trsv df64 n={n}",
+                           lambda: acc_trsv(a, b, "upper", True, ar="df64"), "df64")):
+        prof = profile_calls(label, fn, trsv_counted)
+        (sweep_ms, sweep_n), (gather_ms, gather_n) = prof["trsv_sweep"], prof["leaf_diag"]
+        log(f"  per call: {sweep_n:g} trsv_sweep launch(es) {sweep_ms:.4f} ms, {gather_n:g} "
+            f"leaf_diag launch(es) {gather_ms:.4f} ms")
+        if sweep_n != 1:
+            raise AssertionError(f"{label}: {sweep_n} sweep launches per call, not 1")
+        if ar == "f32":
+            device_ms["trsv_sweep"], device_ms["trsv_leaf_diag"] = sweep_ms, gather_ms
+        else:
+            device_ms["trsv_sweep_df64"] = sweep_ms
+    device_ms["tri_gemv"] = profile_calls(
+        f"tri_gemv_df64 n={n}", lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
+        {"tri_gemv": lambda: trigops.launches})["tri_gemv"][0]
     for label, (ms, pms) in times.items():
         log(f"time {label} n={n}: kernel {ms:.4f} ms"
             + ("" if pms is None else f" | plain {pms:.4f} ms"))
     log(f"time library torch.linalg.solve_triangular f32 n={n}: {lib_solve:.4f} ms | "
-        f"strided-copy leaf gather: {lib_gather:.4f} ms")
+        f"strided-copy leaf gather (clone): {lib_gather:.4f} ms | strided view .float(), "
+        f"no kernel: {event_floor:.4f} ms")
     log(f"bounds: sweep f32 {bounds['trsv_sweep'][0]:.4f} ms ({bounds['trsv_sweep'][1]}), "
         f"sweep df64 {df_bound[0]:.4f} ms ({df_bound[1]}), leaf gather "
         f"{bounds['trsv_leaf_diag'][0]:.4f} ms, tri_gemv {bounds['tri_gemv'][0]:.4f} ms")
+    gather_us = host_us(lambda: trsvops._extract_leaf_diag(a, m, False, True))
+    empty_us = host_us(lambda: torch.empty(m, trsvops.LEAF, trsvops.LEAF, device=dev))
+    clone_us = host_us(lambda: a.as_strided(*tiles).clone())
+    log(f"host us per call: leaf gather {gather_us:.2f}, of which torch.empty of the tiles "
+        f"{empty_us:.2f}; strided copy (clone) {clone_us:.2f}")
+    log("device ms per call (torch.profiler): " + ", ".join(f"{k} {v:.4f}"
+                                                            for k, v in device_ms.items()))
 
     def entry(name, source, replaces, ms, pms, lib):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": max_abs[name], "ms": ms,
                 "plain_ms": pms, "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": lib}
+                "library_ms": lib, "device_ms": device_ms[name]}
 
     return [
         entry("trsv_leaf_diag", "accblas_tpu_torch/csrc/trsv.cu", "accblas_tpu/ops/trsv.py:119",
@@ -647,12 +811,26 @@ def phase_main_trsv() -> list[dict]:
     ]
 
 
+def _run(name: str, phase):
+    """Run a phase; a CUDA fault fails the run with a message naming it."""
+    try:
+        return phase()
+    except RuntimeError as e:
+        if "CUDA" not in str(e) and "launch failure" not in str(e):
+            raise
+        sweep = (" This phase runs the TRSV sweep, whose bounded spin-wait traps when a wait "
+                 "runs out (an 'accblas trsv_sweep' line above names it)."
+                 if "trsv" in name else "")
+        raise SystemExit(f"chip_smoke: CUDA fault in phase {name}: {e}.{sweep}") from e
+
+
 def main() -> int:
     phase_device()
     phase_build()
-    phase_checks()
-    kernels = phase_main()
-    kernels += phase_main_trsv()
+    _run("dot/gemv checks", phase_checks)
+    _run("trsv checks", phase_trsv_checks)
+    kernels = _run("dot/gemv main path", phase_main)
+    kernels += _run("trsv main path", phase_main_trsv)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -237,8 +237,8 @@ def _run_trsv(a, b, uplo, unit, ar, tol):
     assert (ttrsv.leaf_diag_launches, ttrsv.sweep_launches) == (before[0] + 1, before[1] + 1)
     n = a.shape[0]
     nb = -(-n // ttrsv.BLOCK)
-    d = ttrsv._extract_leaf_diag_plain(a, nb * ttrsv.BLOCK // ttrsv.LEAF)
-    inv = ttrsv._leaf_inverses(d, n, uplo == "lower", unit)
+    d = ttrsv._extract_leaf_diag_plain(a, nb * ttrsv.BLOCK // ttrsv.LEAF, uplo == "lower", unit)
+    inv = ttrsv._leaf_inverses(d, uplo == "lower")
     bt = ttrsv._rhs_panels(b.reshape(n, -1), nb)
     plain = ttrsv._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, got.dtype)
     ref = _solve64(a, b, uplo, unit)
@@ -282,8 +282,18 @@ def test_trsv_kernel_sizes(cuda, n):
         _run_trsv(a, b, "upper", False, ar, _trsv_tol(ar, "f32"))
 
 
+@pytest.mark.parametrize("uplo,unit", [("upper", False), ("lower", True), ("lower", False)])
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 129])
+def test_trsv_kernel_block_row_boundaries(cuda, n, uplo, unit):
+    """A block row of the sweep is one 64-row leaf: one, two and three
+    block rows, full and ragged."""
+    a, b = _packed_lu(n, 43, cuda)
+    for ar in ("f32", "df64"):
+        _run_trsv(a, b, uplo, unit, ar, _trsv_tol(ar, "f32"))
+
+
 @pytest.mark.parametrize("ar", ["f32", "df64"])
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 5, 8])
 def test_trsm_kernel_matches_trsv_per_column(cuda, k, ar):
     """Right-hand sides are independent, and the kernel sums each one in
     the same order: a column of TRSM is the TRSV of that column, bit for bit."""
@@ -307,6 +317,37 @@ def test_trsv_kernel_result_storage_and_repeats(cuda):
     assert accblas_tpu_torch.trsv(a, b.to(torch.bfloat16), unit=False).dtype == torch.bfloat16
 
 
+def test_trsv_kernel_back_to_back_sweeps_repeat(cuda):
+    """50 sweeps queued on one stream without a synchronisation: each resets
+    its counters, and every result has the first one's bits."""
+    a, b = _packed_lu(1000, 47, cuda)
+    bm = devgen.gen_f32((1000, 5), 47, "trsv_b", cuda)
+    for ar in ("f32", "df64"):
+        before = ttrsv.sweep_launches
+        xs = [accblas_tpu_torch.acc_trsv(a, b, "lower", False, ar=ar) for _ in range(50)]
+        ms = [accblas_tpu_torch.acc_trsm(a, bm, "upper", False, ar=ar) for _ in range(50)]
+        assert ttrsv.sweep_launches == before + 100
+        torch.cuda.synchronize()
+        assert all(torch.equal(xs[0], x) for x in xs[1:])
+        assert all(torch.equal(ms[0], m) for m in ms[1:])
+        _run_trsv(a, b, "lower", False, ar, _trsv_tol(ar, "f32"))
+
+
+def test_trsv_kernel_grid_beyond_the_resident_ctas(cuda):
+    """More block rows than the card holds CTAs at once: the tickets keep
+    the sweep advancing whatever order the CTAs start in."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = ttrsv.sweep_occupancy(torch.float32, "f32", 1) * sms
+    n = max(20000, ttrsv.LEAF * (resident + 49) + 17)
+    assert -(-n // ttrsv.LEAF) > resident
+    a = devgen.gen_f32((n, n), 53, "trsv_a", cuda).mul_(1.0 / n)
+    b = torch.ones(n, device=cuda)
+    x = accblas_tpu_torch.trsv(a, b, "upper", True)
+    ref = _solve64(a, b, "upper", True)
+    assert torch.isfinite(x).all()
+    assert _rel1(x, ref) < 1e-4
+
+
 def test_trsv_kernel_unaligned_matrix(cuda):
     """A 4 bytes past a 16-byte boundary: the element-wise loads."""
     a, b = _packed_lu(640, 19, cuda)
@@ -318,12 +359,20 @@ def test_trsv_kernel_unaligned_matrix(cuda):
 @pytest.mark.parametrize("st", list(STORAGE))
 @pytest.mark.parametrize("n", [1000, 1024])
 def test_leaf_gather_kernel_bits(cuda, st, n):
+    """The masked gather against tri_mask of the plain gather, bit for bit,
+    in every mode; the unaligned A takes the element loads."""
     a = devgen.gen_f32((n, n), 23, "gemv_a", cuda).to(STORAGE[st])
+    buf = torch.empty(n * n + 1, dtype=a.dtype, device=cuda)
+    buf[1:] = a.reshape(-1)
     m = -(-n // ttrsv.BLOCK) * ttrsv.BLOCK // ttrsv.LEAF
-    before = ttrsv.leaf_diag_launches
-    got = ttrsv._extract_leaf_diag(a, m)
-    assert ttrsv.leaf_diag_launches == before + 1
-    assert torch.equal(got, ttrsv._extract_leaf_diag_plain(a, m))
+    for lower in (False, True):
+        for unit in (False, True):
+            want = ttrsv._extract_leaf_diag_plain(a, m, lower, unit)
+            for op in (a, buf[1:].view(n, n)):
+                before = ttrsv.leaf_diag_launches
+                got = ttrsv._extract_leaf_diag(op, m, lower, unit)
+                assert ttrsv.leaf_diag_launches == before + 1
+                assert torch.equal(got, want)
 
 
 def test_trsv_kernels_reject_what_they_do_not_take(cuda):

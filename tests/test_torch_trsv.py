@@ -27,6 +27,7 @@ import scipy.linalg
 import torch
 
 import accblas_tpu_torch
+from accblas_tpu.ops import common as jcommon
 from accblas_tpu.ops import trsv as jtrsv
 from accblas_tpu_torch.ops import trsv as ttrsv
 from accblas_tpu_torch.utils import MatrixInfo, gen_mtx, interop
@@ -254,27 +255,35 @@ def test_xla_tiers(uplo, unit):
     assert accblas_tpu_torch.xla_trsv(torch.from_numpy(a), bb, uplo, unit).dtype == torch.bfloat16
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_leaf_diag(st, n):
+    """The JAX package's raw leaf gather (Pallas, interpret mode) of the
+    seeded matrix in storage `st`, cut to n x n; the JAX kernel reads whole
+    BLOCKs, so a ragged n is zero-padded for it (tri_mask masks past n)."""
+    a = gen_mtx(MatrixInfo(1024, 1024), seed=31).astype(np.float32)
+    ta = interop.from_numpy(a, st)[:n, :n].contiguous()
+    nb = -(-n // ttrsv.BLOCK)
+    pad = jnp.pad(jnp.asarray(ta.float().numpy()), ((0, nb * ttrsv.BLOCK - n),) * 2)
+    return ta, jtrsv._extract_leaf_diag(pad, nb, ttrsv.BLOCK, ttrsv.LEAF, interpret=True)
+
+
+@pytest.mark.parametrize("uplo,unit", [("upper", True), ("lower", True), ("upper", False),
+                                       ("lower", False)])
 @pytest.mark.parametrize("st", ["f32", "bf16", "f8e5m2"])
-def test_leaf_gather_bits(st):
-    """The gather is a copy: the same bits as the JAX kernel on an aligned
-    matrix, and zero past n on a ragged one."""
-    n = 1024
-    a = gen_mtx(MatrixInfo(n, n), seed=31).astype(np.float32)
-    ta = interop.from_numpy(a, st)
-    m = n // ttrsv.LEAF
-    got = ttrsv._extract_leaf_diag(ta, m)
-    want = jtrsv._extract_leaf_diag(jnp.asarray(ta.float().numpy()), n // ttrsv.BLOCK,
-                                    ttrsv.BLOCK, ttrsv.LEAF, interpret=True)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    nr = 700
-    got = ttrsv._extract_leaf_diag(ta[:nr, :nr].contiguous(), 2 * ttrsv.BLOCK // ttrsv.LEAF)
-    full = ta.float()
-    for s in range(got.shape[0]):
-        r0 = s * ttrsv.LEAF
-        w = max(0, min(ttrsv.LEAF, nr - r0))
-        np.testing.assert_array_equal(got[s, :w, :w].numpy(),
-                                      full[r0 : r0 + w, r0 : r0 + w].numpy())
-        assert not got[s, w:].any() and not got[s, :, w:].any()
+def test_leaf_gather_bits(st, uplo, unit):
+    """The masked gather is the JAX kernel's gather followed by the JAX
+    tri_mask, bit for bit: on an aligned matrix and on a ragged one, whose
+    lanes past n continue as the identity."""
+    lower = uplo == "lower"
+    for n in (1024, 700):
+        ta, raw = _jax_leaf_diag(st, n)
+        m = raw.shape[0]
+        got = ttrsv._extract_leaf_diag(ta, m, lower, unit)
+        want = jcommon.tri_mask(raw, lower, unit, n=n,
+                                offs=jnp.arange(m, dtype=jnp.int32) * ttrsv.LEAF)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if n % ttrsv.LEAF:
+            np.testing.assert_array_equal(got[-1].numpy(), np.eye(ttrsv.LEAF, dtype=np.float32))
 
 
 @pytest.mark.parametrize("n,uplo,unit", [(512, "upper", False), (700, "lower", True),
@@ -286,8 +295,8 @@ def test_leaf_inverses_match_jax(n, uplo, unit):
     a = lu.astype(np.float32)
     nb = -(-n // ttrsv.BLOCK)
     lower = uplo == "lower"
-    d = ttrsv._extract_leaf_diag(torch.from_numpy(a), nb * ttrsv.BLOCK // ttrsv.LEAF)
-    got = ttrsv._leaf_inverses(d, n, lower, unit)
+    d = ttrsv._extract_leaf_diag(torch.from_numpy(a), nb * ttrsv.BLOCK // ttrsv.LEAF, lower, unit)
+    got = ttrsv._leaf_inverses(d, lower)
     want = jtrsv._leaf_inverses(jnp.asarray(a), nb, ttrsv.BLOCK, ttrsv.LEAF, lower, unit,
                                 True, n=n)
     want = np.asarray(want).reshape(-1, ttrsv.LEAF, ttrsv.LEAF).transpose(0, 2, 1)
@@ -299,6 +308,20 @@ def test_leaf_inverses_match_jax(n, uplo, unit):
     if n % ttrsv.BLOCK:
         last = got[-1].numpy()
         np.testing.assert_array_equal(last, np.eye(ttrsv.LEAF, dtype=np.float32))
+
+
+def test_sweep_reads_the_inverses_as_the_solve_returns_them():
+    """The batched solve returns column-major leaves, which the kernel
+    wrapper takes as they are (no copy); it refuses any other layout."""
+    d = ttrsv._extract_leaf_diag(torch.from_numpy(_packed_lu(128)[0].astype(np.float32)), 2,
+                                 False, False)
+    inv = ttrsv._leaf_inverses(d, False)
+    ttrsv._check_inverses(inv, 128)
+    for bad in (inv.contiguous(), inv[:, ::2], torch.zeros(2, 32, 32).mT):
+        with pytest.raises(ValueError, match="not column-major"):
+            ttrsv._check_inverses(bad, 128)
+    with pytest.raises(ValueError, match="do not cover"):
+        ttrsv._check_inverses(inv, 129)
 
 
 def test_cpu_tensors_never_launch_the_kernels():
