@@ -26,10 +26,11 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accblas_tpu_torch"
 
 # -fmad=false: no mul+add contraction anywhere, so the error-free transforms
-# of df64.cuh hold; two_prod asks for its fused multiply-add explicitly
+# of df64.cuh hold; two_prod asks for its fused multiply-add explicitly.
+# -Xptxas -v: each kernel's registers and spills, kept in the build log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
@@ -40,6 +41,7 @@ _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # run-time codes of the kernels' template parameters (csrc/accessor.cuh)
 STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "f8e4m3": 3, "f8e5m2": 4}
 TIER_CODE = {"f32": 0, "bf16": 1, "f16": 2, "df64_fast": 3, "df64_precise": 4}
+_DTYPE_CODE = {dtypes.torch_dtype(name): code for name, code in STORAGE_CODE.items()}
 
 
 def _nvcc() -> str:
@@ -73,6 +75,7 @@ def _finish(name: str, proc, tmp: str, out: Path):
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
 
 
@@ -97,6 +100,13 @@ def build(*names: str) -> list[Path]:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library of csrc/<name>.cu (ptxas'
+    registers and spills per kernel), built first if needed."""
+    (path,) = build(name)
+    return path.with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -156,11 +166,8 @@ def check(err: int, what: str):
 def storage_code(t, what: str) -> int:
     """The kernel storage code of tensor `t`'s dtype; raises on a dtype the
     kernels do not take."""
-    try:
-        name = dtypes.canon(t.dtype)
-    except ValueError:
-        name = None
-    if name not in STORAGE_CODE:
+    code = _DTYPE_CODE.get(t.dtype)
+    if code is None:
         raise ValueError(f"{what}: dtype {t.dtype} is not a kernel storage type "
                          f"({', '.join(STORAGE_CODE)})")
-    return STORAGE_CODE[name]
+    return code

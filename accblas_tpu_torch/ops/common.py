@@ -6,20 +6,19 @@ import torch
 
 
 def pow2_ceil(x: int) -> int:
-    p = 1
-    while p < x:
-        p <<= 1
-    return p
+    """The least power of two >= x (1 for x <= 1)."""
+    return 1 << max(x - 1, 0).bit_length()
 
 
 def route(what: str, *tensors: torch.Tensor) -> str:
     """'cpu' or 'cuda': where an op runs. Every operand must lie on the same
     device: an op runs its plain torch version only for CPU tensors and its
     CUDA kernel only for CUDA tensors, and never moves data between them."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{what}: operands on different devices {sorted(map(str, devices))}")
-    (dev,) = devices
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what}: operands on different devices "
+                             f"{sorted({str(u.device) for u in tensors})}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no route for device {dev}")
     return dev.type

@@ -30,10 +30,9 @@ from .common import pow2_ceil, pow2_tree_sum, route
 launches = 0
 
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -79,49 +78,44 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     return (acc.float() * alpha + rv).to(ar_dt).to(res.dtype)
 
 
-def _gemv_cuda(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
-    """Launch the csrc/gemv.cu kernel on the current stream."""
+def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int):
+    """Launch the csrc/gemv.cu kernel on the current stream. `codes`: the
+    storage codes of A, x and res and the tier code, 4 bits each from the
+    lowest (the C entry's `codes`)."""
     global launches
-    m, n = a.shape
-    sa = _build.storage_code(a, "gemv A")
-    sx = _build.storage_code(x, "gemv x")
-    sr = _build.storage_code(res, "gemv res")
     if not (a.is_contiguous() and x.is_contiguous() and res.is_contiguous()):
         raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
-    vec = 16 // max(a.element_size(), x.element_size())
-    vec_ok = a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0 and n % vec == 0
-    if df_out:
-        out = torch.empty(m, dtype=torch.float32, device=a.device)
-        out_lo = torch.empty(m, dtype=torch.float32, device=a.device)
-    else:
-        out = torch.empty(m, dtype=res.dtype, device=a.device)
-        out_lo = None
+    m, n = a.shape
+    out = torch.empty(m, dtype=torch.float32 if df_out else res.dtype, device=a.device)
+    out_lo = torch.empty(m, dtype=torch.float32, device=a.device) if df_out else None
     if m > 0:
         fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
         with _build.on_device(a):
-            err = fn(a.data_ptr(), sa, x.data_ptr(), sx, res.data_ptr(), sr, out.data_ptr(),
+            err = fn(a.data_ptr(), x.data_ptr(), res.data_ptr(), out.data_ptr(),
                      None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
-                     _build.TIER_CODE[tier], _block_cols(n), int(vec_ok), _build.stream(a))
+                     _block_cols(n), codes, _build.stream(a))
         _build.check(err, "gemv kernel launch")
         launches += 1
     return dfm.DF(out, out_lo) if df_out else out
 
 
 def _gemv_call(a, x, res, alpha, beta, ar: str, precise: bool, df_out: bool = False):
+    """Validate the operands once, then run the kernel (CUDA tensors) or the
+    plain version (CPU tensors)."""
     if df_out and ar != "df64":
         raise ValueError("df_out requires ar='df64'")
     if a.dim() != 2:
         raise ValueError(f"gemv expects a 2-D A, got {tuple(a.shape)}")
     m, n = a.shape
-    if tuple(x.shape) != (n,) or tuple(res.shape) != (m,):
+    if x.shape != (n,) or res.shape != (m,):
         raise ValueError(f"shape mismatch: A{tuple(a.shape)} x{tuple(x.shape)} "
                          f"res{tuple(res.shape)}")
     tier = _build.tier(ar, precise, "gemv")
-    for t, what in ((a, "gemv A"), (x, "gemv x"), (res, "gemv res")):
-        _build.storage_code(t, what)
+    codes = (_build.storage_code(a, "gemv A") | _build.storage_code(x, "gemv x") << 4
+             | _build.storage_code(res, "gemv res") << 8 | _build.TIER_CODE[tier] << 12)
     alpha, beta = float(alpha), float(beta)
     if route("gemv", a, x, res) == "cuda":
-        return _gemv_cuda(a, x, res, alpha, beta, tier, df_out)
+        return _gemv_cuda(a, x, res, alpha, beta, df_out, codes)
     return _gemv_plain(a, x, res, alpha, beta, tier, df_out)
 
 

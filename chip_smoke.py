@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc;
+  2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
+     prints ptxas' registers and spills of the GEMV kernel's instantiations;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -29,7 +30,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      that computes the same function, where there is one, at the main-path
      shapes (1 warm-up, 10 reps, minimum, CUDA events), beside the least time
      the card could take (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s);
-     and acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
+     for GEMV (Acc<f32,bf16>, fixed f32 and Acc<df64,bf16> at 16384^2, and
+     the flagship) where a call's time goes, beside torch.mv: device time
+     from torch.profiler, and host microseconds of the call, of torch.mv, of
+     torch.empty, of the bare ctypes call and of the checks alone; and
+     acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
      against float64 and timed beside torch.linalg.solve_triangular.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A CUDA fault fails the run naming the phase;
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +99,42 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
+    log_ptxas("gemv_rows", _build.build_log("gemv"))
+
+
+def log_ptxas(kernel: str, text: str):
+    """Registers and spill bytes of each instantiation of `kernel`, from the
+    ptxas -v lines of its library's build log: a line per tier, and one per
+    main-path instantiation (GEMV's A and x storage, tier)."""
+    found, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                found[name] = [0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+    if not found:
+        raise AssertionError(f"no ptxas report of {kernel} in the build log")
+    names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True, text=True,
+                           check=True).stdout.split("\n")
+    by_tier = {}
+    for pretty, (regs, spill) in zip(names, found.values()):
+        tier = int(re.search(r", (\d)>\(", pretty).group(1))
+        by_tier.setdefault(tier, []).append((regs, spill))
+        if any(f"{kernel}<{st}, {st}, {t}>" in pretty
+               for st, t in (("__nv_bfloat16", 0), ("float", 0), ("__nv_bfloat16", 3))):
+            log(f"ptxas {pretty[pretty.index(kernel):pretty.index('>(') + 1]}: {regs} registers, "
+                f"{spill} spill bytes")
+    from accblas_tpu_torch.ops import _build
+
+    tier_names = {code: name for name, code in _build.TIER_CODE.items()}
+    for tier, rs in sorted(by_tier.items()):
+        log(f"ptxas {kernel} tier {tier_names[tier]}: {len(rs)} instantiations, registers "
+            f"{min(r for r, _ in rs)}-{max(r for r, _ in rs)}, spill bytes at most "
+            f"{max(s for _, s in rs)}")
 
 
 # --------------------------------------------------------------------------
@@ -505,59 +547,67 @@ def phase_main() -> list[dict]:
         return min(k1, k2), min(p1, p2)
 
     dot_ms, dot_plain_ms = best(dot_k, dot_p)
-    gemv_ms, gemv_plain_ms = best(gemv_k, gemv_p)
     # the one PyTorch call computing the same function: the yardstick only
     dot_lib_ms = benchmark_function(lambda: torch.dot(xb, yb))
-    gemv_lib_ms = benchmark_function(lambda: torch.mv(ab, xg))
     dot_bytes = N_DOT * (2 + 2)
-    gemv_bytes = N_GEMV * N_GEMV * 2 + N_GEMV * 2 + N_GEMV * 4
-    for name, flops, nbytes, ms, pms in (
-        (f"dot Acc<f32,bf16> n={N_DOT}", 2 * N_DOT, dot_bytes, dot_ms, dot_plain_ms),
-        (f"gemv Acc<f32,bf16> {N_GEMV}^2", 2 * N_GEMV**2, gemv_bytes, gemv_ms, gemv_plain_ms),
-    ):
-        log(f"time {name}: kernel {ms:.4f} ms {flops / ms / 1e6:.1f} GFLOP/s "
-            f"{nbytes / ms / 1e6:.1f} GB/s | plain {pms:.4f} ms "
-            f"{flops / pms / 1e6:.1f} GFLOP/s {nbytes / pms / 1e6:.1f} GB/s")
     dot_bound, dot_by = bound(dot_bytes, 2 * N_DOT)
-    gemv_bound, gemv_by = bound(gemv_bytes, 2 * N_GEMV**2)
-    log(f"time library torch.dot bf16 n={N_DOT}: {dot_lib_ms:.4f} ms | "
-        f"torch.mv bf16 {N_GEMV}^2: {gemv_lib_ms:.4f} ms | bounds dot {dot_bound:.4f} ms, "
-        f"gemv {gemv_bound:.4f} ms")
+    # both passes of the DOT count as one launch of its wrapper
+    dot_prof, _ = profile_calls(f"dot Acc<f32,bf16> n={N_DOT}", dot_k,
+                                {k: lambda: dotops.launches for k in ("dot_partials",
+                                                                      "dot_finish")})
+    dot_dev_ms = sum(ms for ms, _ in dot_prof.values())
+    log(f"time dot Acc<f32,bf16> n={N_DOT}: kernel {dot_ms:.4f} ms "
+        f"{2 * N_DOT / dot_ms / 1e6:.1f} GFLOP/s {dot_bytes / dot_ms / 1e6:.1f} GB/s, device "
+        f"{dot_dev_ms:.4f} ms ({dot_bound / dot_dev_ms:.1%} of the bound) | plain "
+        f"{dot_plain_ms:.4f} ms | library torch.dot bf16 {dot_lib_ms:.4f} ms | bound "
+        f"{dot_bound:.4f} ms")
 
-    # the GEMV tiers the TPU served with its full-row kernel, at 16384^2;
-    # torch.mv computes the f32 tier's function, and no PyTorch call df64's
-    a32 = ab.float()
-    x32 = xg.float()
-    for label, fk, fp, fl, nbytes in (
-        (f"gemv fixed f32 {N_GEMV}^2",
+    # GEMV: the main path's tier and the tiers the TPU served with its
+    # full-row kernel at 16384^2, and the flagship; torch.mv computes the
+    # f32 tiers' function, and no PyTorch call df64's
+    a32, x32 = ab.float(), xg.float()
+    gemv_bytes = N_GEMV * N_GEMV * 2 + N_GEMV * 2 + N_GEMV * 4
+    gemv = {}
+    for key, label, fk, fp, fl, m, n, nbytes in (
+        ("main", f"Acc<f32,bf16> {N_GEMV}^2 beta=0", gemv_k, gemv_p,
+         lambda: torch.mv(ab, xg), N_GEMV, N_GEMV, gemv_bytes),
+        ("f32", f"fixed f32 {N_GEMV}^2 beta=0",
          lambda: gemvops.gemv(a32, x32, rg, 1.0, 0.0),
          lambda: gemvops._gemv_plain(a32, x32, rg, 1.0, 0.0, "f32", False),
-         lambda: torch.mv(a32, x32), N_GEMV * N_GEMV * 4 + N_GEMV * 8),
-        (f"gemv Acc<df64,bf16> fast {N_GEMV}^2",
+         lambda: torch.mv(a32, x32), N_GEMV, N_GEMV, N_GEMV * N_GEMV * 4 + N_GEMV * 8),
+        ("df64", f"Acc<df64,bf16> fast {N_GEMV}^2 beta=0",
          lambda: acc_gemv(ab, xg, rg, 1.0, 0.0, ar="df64"),
          lambda: gemvops._gemv_plain(ab, xg, rg, 1.0, 0.0, "df64_fast", False),
-         None, gemv_bytes),
+         None, N_GEMV, N_GEMV, gemv_bytes),
+        ("entry", f"Acc<f32,bf16> entry {me}x{ne}",
+         lambda: acc_gemv(ae, xe, re, 1.0, 1.0, ar="f32"),
+         lambda: gemvops._gemv_plain(ae, xe, re, 1.0, 1.0, "f32", False),
+         lambda: torch.mv(ae, xe), me, ne, me * ne * 2 + ne * 2 + me * 8),
     ):
-        ms, pms = best(fk, fp)
-        lib = "none" if fl is None else f"{benchmark_function(fl):.4f} ms"
-        log(f"time {label}: kernel {ms:.4f} ms {nbytes / ms / 1e6:.1f} GB/s | "
-            f"plain {pms:.4f} ms {nbytes / pms / 1e6:.1f} GB/s | library {lib} | "
-            f"bound {bound(nbytes, 2 * N_GEMV**2)[0]:.4f} ms")
+        bnd, by = bound(nbytes, 2 * m * n)
+        sp = gemv_split(label, fk, fp, fl, m, dev)
+        log(f"time gemv {label}: kernel {sp['ms']:.4f} ms {nbytes / sp['ms'] / 1e6:.1f} GB/s, "
+            f"device {sp['device_ms']:.4f} ms ({bnd / sp['device_ms']:.1%} of the bound) | plain "
+            f"{sp['plain_ms']:.4f} ms | bound {bnd:.4f} ms ({by})")
+        gemv[key] = dict(sp, bound_ms=bnd, bound_by=by)
     del a32, x32
 
     return [
         {"name": "dot", "route": "cuda", "source": "accblas_tpu_torch/csrc/dot.cu",
          "replaces": "accblas_tpu/ops/dot.py:136", "launches": launches["dot"],
          "max_abs_err": max_abs["dot"], "ms": dot_ms, "plain_ms": dot_plain_ms,
-         "bound_ms": dot_bound, "bound_by": dot_by, "library_ms": dot_lib_ms},
+         "bound_ms": dot_bound, "bound_by": dot_by, "library_ms": dot_lib_ms,
+         "device_ms": dot_dev_ms},
         {"name": "gemv", "route": "cuda", "source": "accblas_tpu_torch/csrc/gemv.cu",
          "replaces": "accblas_tpu/ops/gemv.py:147", "launches": launches["gemv"],
-         "max_abs_err": max_abs["gemv"], "ms": gemv_ms, "plain_ms": gemv_plain_ms,
-         "bound_ms": gemv_bound, "bound_by": gemv_by, "library_ms": gemv_lib_ms},
+         "max_abs_err": max_abs["gemv"], "ms": gemv["main"]["ms"],
+         "plain_ms": gemv["main"]["plain_ms"], "bound_ms": gemv["main"]["bound_ms"],
+         "bound_by": gemv["main"]["bound_by"], "library_ms": gemv["main"]["library_ms"],
+         "device_ms": gemv["main"]["device_ms"]},
     ]
 
 
-def profile_calls(label: str, fn, counted: dict, calls: int = 5) -> dict[str, tuple[float, float]]:
+def profile_calls(label: str, fn, counted: dict, calls: int = 5):
     """Device time by kernel over `calls` calls of `fn` (torch.profiler,
     "Self CUDA"), and the calls' wall time: where a call's time goes.
     `counted` maps a name in a port kernel's symbol to a function reading
@@ -565,26 +615,32 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5) -> dict[str, tu
     so a kernel's device ms per call is its mean time per record times the
     launches its wrapper counted per call; a drop is logged. A port kernel
     (namespace accblas) that no counter names, or more records than counted
-    launches, fails the run. Returns {name: (device ms, launches) per call}."""
+    launches, fails the run. Returns ({name: (device ms, launches) per call},
+    device busy ms per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    before = {name: read() for name, read in counted.items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls * 1e3
-    launched = {name: read() - before[name] for name, read in counted.items()}
-    # (symbol, total device ms, records, whether a device record)
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count,
-                    e.device_type != DeviceType.CPU)
-                   for e in prof.key_averages() if e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows if r[3]) / calls
+    for attempt in range(3):
+        before = {name: read() for name, read in counted.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / calls * 1e3
+        launched = {name: read() - before[name] for name, read in counted.items()}
+        # (symbol, total device ms, records, whether a device record)
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count,
+                        e.device_type != DeviceType.CPU)
+                       for e in prof.key_averages() if e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows if r[3]) / calls
+        if busy > 0:
+            break
+        # the trace came back without one device record: profile again
+        log(f"profile {label}: no device records in the trace (attempt {attempt + 1})")
     log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
     for key, ms, count, _ in rows[:8]:
         log(f"  {ms / calls:9.4f} ms/call  {count:4d} records/{calls} calls  {key[:90]}")
@@ -602,22 +658,99 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5) -> dict[str, tu
             log(f"  the profiler dropped {n - records} of {n} {name} records; its ms/call "
                 f"is the mean record times the counted launches")
         out[name] = (sum(r[1] for r in hits) / records * n / calls, n / calls)
-    return out
+    return out, busy
 
 
 def host_us(fn, reps: int = 2000) -> float:
-    """Host microseconds per call of `fn`, called back to back (the card
-    keeps up with a short kernel): what a call costs before its launch."""
+    """Host microseconds a call of `fn` takes before it returns: the median
+    of the calls timed one by one on the host clock. The card is drained
+    every 100 calls, outside the timed calls, so no call waits for room in
+    the launch queue, however long its kernel runs."""
     for _ in range(20):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for i in range(reps):
+        t0 = time.perf_counter()
         fn()
-        if i % 200 == 199:
+        times.append(time.perf_counter() - t0)
+        if i % 100 == 99:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e6
+    return sorted(times)[reps // 2] * 1e6
+
+
+def _bare_launch(call):
+    """Run `call` once, noting the C entry point it launches through
+    (`_build.function`) and the arguments it passes: the bare ctypes call,
+    its arguments prepared. Returns (fn, args, the call's result), which
+    keeps the output the arguments point to alive."""
+    from accblas_tpu_torch.ops import _build
+
+    seen = []
+    real = _build.function
+
+    def spy(lib, name, argtypes):
+        fn = real(lib, name, argtypes)
+
+        def launch(*args):
+            seen.append((fn, args))
+            return fn(*args)
+        return launch
+
+    _build.function = spy
+    try:
+        out = call()
+    finally:
+        _build.function = real
+    (fn, args), = seen
+    torch.cuda.synchronize()
+    return fn, args, out
+
+
+def _checks_only_us(call) -> float:
+    """Host us of a GEMV call with its launch (`_gemv_cuda`) stubbed out:
+    the public function's checks and dispatch alone."""
+    from accblas_tpu_torch.ops import gemv as gemvops
+
+    real = gemvops._gemv_cuda
+    gemvops._gemv_cuda = lambda *args: None
+    try:
+        return host_us(call)
+    finally:
+        gemvops._gemv_cuda = real
+
+
+def gemv_split(label: str, call, plain, lib, m: int, dev) -> dict:
+    """Where a GEMV call's time goes, for the port's call and, where there
+    is one, torch.mv on the same operands: CUDA-event minima of the call, of
+    torch.mv and of the plain version, interleaved (call, torch.mv, plain,
+    plain, torch.mv, call); device ms per call from torch.profiler
+    (gemv_rows, and torch.mv's kernels); host us per call of the call, of
+    torch.mv, of torch.empty(m), of the bare ctypes call with its arguments
+    prepared, and of the checks alone (the launch stubbed)."""
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    order = (call, plain, plain, call) if lib is None else (call, lib, plain, plain, lib, call)
+    t = [benchmark_function(f) for f in order]
+    ms, plain_ms = min(t[0], t[-1]), min(t[len(t) // 2 - 1], t[len(t) // 2])
+    lib_ms = None if lib is None else min(t[1], t[-2])
+    prof, _ = profile_calls(f"gemv {label}", call, {"gemv_rows": lambda: gemvops.launches})
+    dev_ms = prof["gemv_rows"][0]
+    lib_dev = None if lib is None else profile_calls(f"torch.mv {label}", lib, {})[1]
+    fn, args, _out = _bare_launch(call)
+    host = {"call": host_us(call),
+            "torch.mv": None if lib is None else host_us(lib),
+            "torch.empty": host_us(lambda: torch.empty(m, device=dev)),
+            "ctypes": host_us(lambda: fn(*args)),
+            "checks": _checks_only_us(call)}
+    fmt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
+    log(f"split gemv {label}: event ms kernel {ms:.4f} library {fmt(lib_ms)} | device ms "
+        f"gemv_rows {dev_ms:.4f} library {fmt(lib_dev)} | host us "
+        + ", ".join(f"{k} {fmt(v)}" for k, v in host.items()))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev, "host_us": host}
 
 
 def phase_main_trsv() -> list[dict]:
@@ -764,7 +897,7 @@ def phase_main_trsv() -> list[dict]:
     for label, fn, ar in ((f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True), "f32"),
                           (f"acc_trsv df64 n={n}",
                            lambda: acc_trsv(a, b, "upper", True, ar="df64"), "df64")):
-        prof = profile_calls(label, fn, trsv_counted)
+        prof, _ = profile_calls(label, fn, trsv_counted)
         (sweep_ms, sweep_n), (gather_ms, gather_n) = prof["trsv_sweep"], prof["leaf_diag"]
         log(f"  per call: {sweep_n:g} trsv_sweep launch(es) {sweep_ms:.4f} ms, {gather_n:g} "
             f"leaf_diag launch(es) {gather_ms:.4f} ms")
@@ -776,7 +909,7 @@ def phase_main_trsv() -> list[dict]:
             device_ms["trsv_sweep_df64"] = sweep_ms
     device_ms["tri_gemv"] = profile_calls(
         f"tri_gemv_df64 n={n}", lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
-        {"tri_gemv": lambda: trigops.launches})["tri_gemv"][0]
+        {"tri_gemv": lambda: trigops.launches})[0]["tri_gemv"][0]
     for label, (ms, pms) in times.items():
         log(f"time {label} n={n}: kernel {ms:.4f} ms"
             + ("" if pms is None else f" | plain {pms:.4f} ms"))

@@ -144,8 +144,48 @@ def test_gemv_kernel_beta0_nan_res_and_bf16_out(cuda, tier):
     assert _run_gemv(a, x, rb, tier, 1.0, 1.0).dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("m,n,st,x_off", [
+    # m not a multiple of a CTA's 4 rows
+    (1, 1236, "f32", 0), (7, 1236, "f32", 0), (301, 1236, "f32", 0),
+    # vector steps a lane takes that leave a ragged rest after the unrolled
+    # ones (16392 bf16 columns: 2049 steps of 8; 1236 f32: 309 of 4), and n
+    # not a multiple of the vector width (1234 f32): the element loads
+    (7, 16384 + 8, "bf16", 0), (9, 1234, "f32", 0),
+    # n > 1024 and not a multiple of the bf16/f16 tiers' 1024-column block
+    (37, 3000, "f16", 0),
+    # x one element off a 16-byte boundary: the element loads
+    (33, 2048, "bf16", 1), (9, 1236, "f32", 1),
+])
+def test_gemv_kernel_edges(cuda, tier, m, n, st, x_off):
+    a = devgen.gen_f32((m, n), 8, "gemv_a", cuda).to(STORAGE[st])
+    buf = devgen.gen_f32((n + x_off,), 8, "gemv_x", cuda).to(STORAGE[st])
+    x = buf[x_off:]
+    r = devgen.gen_f32((m,), 8, "gemv_res", cuda)
+    _run_gemv(a, x, r, tier, 1.5, 0.5)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_gemv_kernel_repeats_its_bits(cuda, tier):
+    """20 calls queued on one stream without a synchronisation: every sum
+    runs in a fixed order, so each result has the first one's bits."""
+    a = devgen.gen_f32((1003, 5000), 9, "gemv_a", cuda).to(torch.bfloat16)
+    x = devgen.gen_f32((5000,), 9, "gemv_x", cuda).to(torch.bfloat16)
+    r = devgen.gen_f32((1003,), 9, "gemv_res", cuda)
+    ar, precise = _ar(tier)
+    df_out = tier == "df64_precise"
+    outs = [tgemv.acc_gemv(a, x, r, 1.5, 0.5, ar, precise=precise, df_out=df_out)
+            for _ in range(20)]
+    torch.cuda.synchronize()
+    if df_out:
+        assert all(torch.equal(outs[0].hi, o.hi) and torch.equal(outs[0].lo, o.lo)
+                   for o in outs[1:])
+    else:
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
 @pytest.mark.parametrize("tier", ["df64_fast", "df64_precise"])
-@pytest.mark.parametrize("m,n", [(40, 777), (4, 140_000)])
+@pytest.mark.parametrize("m,n", [(40, 777), (41, 2048), (4, 140_000)])
 def test_gemv_kernel_df_out(cuda, tier, m, n):
     a = devgen.gen_f32((m, n), 6, "gemv_a", cuda)
     x = devgen.gen_f32((n,), 6, "gemv_x", cuda)

@@ -174,6 +174,19 @@ def test_rejections_match_jax():
             pkg.acc_gemv(conv(a8), conv(x8[:7]), conv(r), ar="f32")
 
 
+def test_block_cols_is_the_pow2_ceil_loop():
+    """The bf16/f16 tiers' column block, now from int.bit_length, against
+    the loop form it replaced."""
+    def loop_pow2_ceil(v):
+        p = 1
+        while p < v:
+            p <<= 1
+        return p
+
+    for n in range(1, 70001):
+        assert tgemv._block_cols(n) == min(1024, loop_pow2_ceil(n))
+
+
 def test_cpu_tensors_never_launch_the_kernel():
     before = tgemv.launches
     a, x, r = (interop.from_numpy(v) for v in _data(16, 300, "bf16", 37))
