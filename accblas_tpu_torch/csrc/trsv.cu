@@ -46,8 +46,9 @@
 // CUDA error at the next synchronisation instead of hanging it.
 //
 // Sums: each right-hand side has its own accumulators, every thread adds
-// its columns in the order the blocks were solved, and lanes fold in a
-// fixed tree; only tickets and counters are atomic. Results repeat bit for
+// its columns in the order the blocks were solved (in f32 each tile's
+// partial sum, see add_tile), and lanes fold in a fixed tree; only tickets
+// and counters are atomic. Results repeat bit for
 // bit, and do not depend on KP or on when a block was streamed.
 //
 // What bounds it: the triangle is read once, n(n+1)/2 elements, about 2
@@ -59,9 +60,9 @@
 // block rows of n = 16384 are all resident at once on 132 SMs.
 // Matrix-vector work: no wgmma, no TMA.
 //
-// Arithmetic: f32 sums of f32 products; df64 carries x and the sums as
-// (hi, lo) pairs: exact products of A with x_hi (two_prod), f32 products
-// with x_lo, two_sum accumulation, df_add across lanes.
+// Arithmetic: f32 sums of f32 products, a partial per tile; df64 carries x
+// and the sums as (hi, lo) pairs: exact products of A with x_hi (two_prod),
+// f32 products with x_lo, two_sum accumulation, df_add across lanes.
 
 #include <cstdio>
 
@@ -264,7 +265,12 @@ __device__ __forceinline__ void load_tile(float (&av)[kCols], const SA* arow, bo
   }
 }
 
-// acc[q] += the tile's columns (those of load_tile) times x[c0 + ...]
+// acc[q] += the tile's columns (those of load_tile) times x[c0 + ...]. In
+// f32 the tile's kCols products are summed apart and the partial added
+// once: a lane's running sum then takes one rounding per tile, not one per
+// column (one chain of n / kTpr sequential adds erred 2.1e-4 against the
+// fp64 master on the non-unit LU factor at n = 16384 on an H100, the JAX
+// sweep 4.2e-5 on a TPU v5e; PERF.md). df64 sums exactly.
 template <class SA, bool DF64, int KP>
 __device__ __forceinline__ void add_tile(DotAcc<DF64> (&acc)[KP], const float (&av)[kCols],
                                          const float* xhi, const float* xlo, int64_t npad,
@@ -274,14 +280,17 @@ __device__ __forceinline__ void add_tile(DotAcc<DF64> (&acc)[KP], const float (&
   for (int q = 0; q < KP; ++q) {
     if (p0 + q < k) {
       const int64_t o = (p0 + q) * npad + c0;
+      DotAcc<DF64> part;
+      DotAcc<DF64>& into = DF64 ? acc[q] : part;
 #pragma unroll
       for (int u = 0; u < kCols / V; ++u) {
         float h[V], l[V];
         load_cg<V>(h, xhi + o + (g + kTpr * u) * V);
         if constexpr (DF64) load_cg<V>(l, xlo + o + (g + kTpr * u) * V);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[q].add(av[u * V + e], h[e], DF64 ? l[e] : 0.f);
+        for (int e = 0; e < V; ++e) into.add(av[u * V + e], h[e], DF64 ? l[e] : 0.f);
       }
+      if constexpr (!DF64) acc[q].s = __fadd_rn(acc[q].s, part.s);
     }
   }
 }

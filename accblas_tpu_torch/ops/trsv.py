@@ -280,7 +280,7 @@ def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str 
     if resident is True:
         raise NotImplementedError(
             "resident=True selects the blocked torch composition (_trsv_small), which "
-            "the port does not have yet (ROADMAP.md queue A, item 4)"
+            "the port does not have yet (ROADMAP.md queue A, A2)"
         )
     _build.storage_code(a, "trsv A")
     if st_out not in _build.STORAGE_CODE:

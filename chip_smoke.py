@@ -35,7 +35,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from torch.profiler, and host microseconds of the call, of torch.mv, of
      torch.empty, of the bare ctypes call and of the checks alone; and
      acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
-     against float64 and timed beside torch.linalg.solve_triangular.
+     against float64 and timed beside torch.linalg.solve_triangular;
+  6. drivers: the benchmark drivers (accblas_tpu_torch.bench) at their
+     default sizes through their main(): dot_benchmark (n = 2^27) and
+     gemv_benchmark (16384^2) in speed mode and in error mode (DOT over
+     the reference's 10 randomizations), trsv_benchmark (n = 16384) in
+     speed mode, in error mode on the non-unit triangle, and as TRSM with 8
+     right-hand sides;
+     each CSV printed ("csv" lines). It fails on a cell that is NaN, a
+     speed cell that is not positive, an error cell above its bound (f32
+     tiers 1e-5, df64 over f32 5e-7, TRSV over f32 storage 1e-4, the df64
+     oracles 1e-12 for DOT and GEMV and 1e-11 for TRSV, narrow storage
+     4 x max(the JAX package's error in bench_results/ at that size, 2^-8)),
+     a draw of gen_f32 that differs in any bit from its numpy replay (first
+     and last 2^20 elements), or a kernel of the path (DOT, GEMV, the leaf
+     gather, the sweep) that the drivers never launched.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A CUDA fault fails the run naming the phase;
 in a TRSV phase that includes the sweep's bounded spin-wait, which traps
@@ -50,7 +64,9 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 N_DOT = 2**29
@@ -344,7 +360,7 @@ def _progress_check(chk: Checks, dev):
         f"n={N_TRSV} has {N_TRSV // trsvops.LEAF} block rows")
     n = max(20000, trsvops.LEAF * (resident + 49) + 17)
     nr = -(-n // trsvops.LEAF)
-    a = devgen.gen_f32((n, n), SEED, "trsv_a", dev).mul_(1.0 / n)
+    a = devgen.gen_f32((n, n), SEED, "trsv_a", device=dev).mul_(1.0 / n)
     b = torch.ones(n, device=dev)
     x = accblas_tpu_torch.trsv(a, b, "upper", True)
     ref = _solve64(a, b, "upper", True)
@@ -375,7 +391,7 @@ def trsv_checks(chk: Checks, dev):
             _trsv_case(chk, f"Acc<df64,{st}>", "acc_trsv", lu.to(st), b, uplo, unit, "df64",
                        5e-6)
         for k in (3, 8):
-            bm = devgen.gen_f32((n, k), SEED, "trsv_b", dev)
+            bm = devgen.gen_f32((n, k), SEED, "trsv_b", device=dev)
             _trsv_case(chk, f"fixed f32 k={k}", "trsm", lu, bm, "upper", False, "f32", 1e-4)
             _trsv_case(chk, f"Acc<df64,f32> k={k}", "acc_trsm", lu, bm, "lower", True, "df64",
                        5e-6)
@@ -390,8 +406,8 @@ def trsv_checks(chk: Checks, dev):
             chk.record(same, f"masked leaf gather {st} n={n}, 4 modes: bits equal to the plain "
                              f"version={same}")
         if n == 4096:
-            _repeat_check(chk, lu, b, devgen.gen_f32((n, 3), SEED, "trsv_b", dev))
-        x = devgen.gen_f32((n,), SEED, "gemv_x", dev)
+            _repeat_check(chk, lu, b, devgen.gen_f32((n, 3), SEED, "trsv_b", device=dev))
+        x = devgen.gen_f32((n,), SEED, "gemv_x", device=dev)
         _tri_gemv_case(chk, lu, x, b, "upper", False)
         _tri_gemv_case(chk, lu.to(bf), x, b, "lower", True)
         del lu, ldu, b
@@ -407,8 +423,8 @@ def phase_checks():
     e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
 
     for n in (2**24, 100003):
-        x = devgen.gen_f32((n,), SEED, "dot_x", dev)
-        y = devgen.gen_f32((n,), SEED, "dot_y", dev)
+        x = devgen.gen_f32((n,), SEED, "dot_x", device=dev)
+        y = devgen.gen_f32((n,), SEED, "dot_y", device=dev)
         xb, yb = x.to(bf), y.to(bf)
         _dot_case(chk, "fixed f32", x, y, "f32", fixed=True)
         _dot_case(chk, "fixed bf16", xb, yb, "bf16", fixed=True)
@@ -425,9 +441,9 @@ def phase_checks():
         del x, y, xb, yb
 
     for m, n in ((4096, 4096), (1000, 12345)):
-        a = devgen.gen_f32((m, n), SEED, "gemv_a", dev)
-        x = devgen.gen_f32((n,), SEED, "gemv_x", dev)
-        r = devgen.gen_f32((m,), SEED, "gemv_res", dev)
+        a = devgen.gen_f32((m, n), SEED, "gemv_a", device=dev)
+        x = devgen.gen_f32((n,), SEED, "gemv_x", device=dev)
+        r = devgen.gen_f32((m,), SEED, "gemv_res", device=dev)
         ab, xb = a.to(bf), x.to(bf)
         nan = torch.full((m,), float("nan"), device=dev)
         _gemv_case(chk, "fixed f32 a=1.5 b=0.5", a, x, r, 1.5, 0.5, "f32", fixed=True)
@@ -471,11 +487,11 @@ def phase_main() -> list[dict]:
 
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
-    xb = devgen.gen_f32((N_DOT,), SEED, "dot_x", dev).to(bf)
-    yb = devgen.gen_f32((N_DOT,), SEED, "dot_y", dev).to(bf)
-    ab = devgen.gen_f32((N_GEMV, N_GEMV), SEED, "gemv_a", dev).to(bf)
-    xg = devgen.gen_f32((N_GEMV,), SEED, "gemv_x", dev).to(bf)
-    rg = devgen.gen_f32((N_GEMV,), SEED, "gemv_res", dev)
+    xb = devgen.gen_f32((N_DOT,), SEED, "dot_x", device=dev).to(bf)
+    yb = devgen.gen_f32((N_DOT,), SEED, "dot_y", device=dev).to(bf)
+    ab = devgen.gen_f32((N_GEMV, N_GEMV), SEED, "gemv_a", device=dev).to(bf)
+    xg = devgen.gen_f32((N_GEMV,), SEED, "gemv_x", device=dev).to(bf)
+    rg = devgen.gen_f32((N_GEMV,), SEED, "gemv_res", device=dev)
     # the flagship op of __graft_entry__.entry(): seeded host masters
     me, ne = 1024, 2048
     ae = interop.from_numpy(gen_mtx(MatrixInfo(me, ne), seed=42).astype("float32"),
@@ -590,6 +606,11 @@ def phase_main() -> list[dict]:
             f"device {sp['device_ms']:.4f} ms ({bnd / sp['device_ms']:.1%} of the bound) | plain "
             f"{sp['plain_ms']:.4f} ms | bound {bnd:.4f} ms ({by})")
         gemv[key] = dict(sp, bound_ms=bnd, bound_by=by)
+    # the fixed f32 tier, which the TPU ran on its full-row kernel: kernel
+    # against plain on the same inputs
+    max_abs["gemv_fullrow"] = float(
+        (gemvops.gemv(a32, x32, rg, 1.0, 0.0)
+         - gemvops._gemv_plain(a32, x32, rg, 1.0, 0.0, "f32", False)).abs().max())
     del a32, x32
 
     return [
@@ -604,6 +625,14 @@ def phase_main() -> list[dict]:
          "plain_ms": gemv["main"]["plain_ms"], "bound_ms": gemv["main"]["bound_ms"],
          "bound_by": gemv["main"]["bound_by"], "library_ms": gemv["main"]["library_ms"],
          "device_ms": gemv["main"]["device_ms"]},
+        # the same kernel serves the TPU's full-row kernel's tiers (f32 and
+        # df64): its fixed-f32 numbers; its launches are the main path's
+        {"name": "gemv_fullrow", "route": "cuda", "source": "accblas_tpu_torch/csrc/gemv.cu",
+         "replaces": "accblas_tpu/ops/gemv.py:307", "launches": launches["gemv"],
+         "max_abs_err": max_abs["gemv_fullrow"], "ms": gemv["f32"]["ms"],
+         "plain_ms": gemv["f32"]["plain_ms"], "bound_ms": gemv["f32"]["bound_ms"],
+         "bound_by": gemv["f32"]["bound_by"], "library_ms": gemv["f32"]["library_ms"],
+         "device_ms": gemv["f32"]["device_ms"]},
     ]
 
 
@@ -767,7 +796,7 @@ def phase_main_trsv() -> list[dict]:
     n = N_TRSV
     # unit upper: the off-diagonals scaled by 1/n keep the substitution
     # bounded (bench.py's operand)
-    a = devgen.gen_f32((n, n), SEED, "trsv_a", dev).mul_(1.0 / n)
+    a = devgen.gen_f32((n, n), SEED, "trsv_a", device=dev).mul_(1.0 / n)
     b = torch.ones(n, device=dev)
     torch.cuda.synchronize()
 
@@ -853,7 +882,7 @@ def phase_main_trsv() -> list[dict]:
     # TRSM: each panel of 4 right-hand sides is a chain of its own, and the
     # panels of k = 64 hold 16x the CTAs the card holds at once
     for k in (8, 64):
-        bk = devgen.gen_f32((n, k), SEED, "trsv_b", dev)
+        bk = devgen.gen_f32((n, k), SEED, "trsv_b", device=dev)
         xk = acc_trsm(a, bk, "upper", True, ar="f32")
         err = _rel1(xk, _solve64(a, bk, "upper", True))
         log(f"main acc_trsm Acc<f32,f32> n={n} k={k} upper unit: err={err:.3e} bound=1.0e-04")
@@ -944,6 +973,144 @@ def phase_main_trsv() -> list[dict]:
     ]
 
 
+# --------------------------------------------------------------------------
+# phase 6: the benchmark drivers at their default sizes
+# --------------------------------------------------------------------------
+
+# (driver, mode, arguments): each module's main() runs in this process
+DRIVER_RUNS = (
+    ("dot", "speed", ["--sweep", "single"]),
+    # the reference's 10 randomizations: a relative DOT error scales with
+    # sum|x_i y_i| / |x . y|, and with 2 the median is the mean of two draws,
+    # one of which (r = 1, |x . y| = 63.8 against sqrt(n)/3 = 3862) lifts
+    # every tier 60-fold
+    ("dot", "error", ["--sweep", "single", "--error"]),
+    ("gemv", "speed", ["--sweep", "single"]),
+    ("gemv", "error", ["--sweep", "single", "--error"]),
+    ("trsv", "speed", ["--sweep", "single"]),
+    # unit-upper on an LU factor is ill-conditioned: error studies take the
+    # non-unit triangle, as the JAX package's error campaigns do
+    ("trsv", "error", ["--sweep", "single", "--error", "--no-unit"]),
+    ("trsv", "speed k=8", ["--sweep", "single", "--nrhs", "8"]),
+)
+# bounds of the error columns against the fp64 master: f32 storage under
+# f32 arithmetic, df64 over f32 storage, TRSV over f32 storage, the oracles;
+# a narrow-storage column is held to 4 x max(the JAX package's v5e error at
+# the same size, 2^-8), the envelope of utils.tolerance.narrow_bound
+F32_BOUND, DF64_BOUND, TRSV_F32_BOUND = 1e-5, 5e-7, 1e-4
+ORACLE_BOUND = {"dot": 1e-12, "gemv": 1e-12, "trsv": 1e-11}
+
+
+def _jax_error_row(driver: str, size: int) -> dict:
+    """The JAX package's error CSV row at `size` (bench_results/, v5e),
+    keyed by the port's column names."""
+    from accblas_tpu_torch.bench.common import DELIM, vendor_name
+
+    with open(Path(__file__).resolve().parent / "bench_results" / f"{driver}_error.csv") as f:
+        rows = [ln.strip().split(DELIM) for ln in f if ln.strip()]
+    for row in rows[1:]:
+        if int(row[0]) == size:
+            return {vendor_name(k): float(v) for k, v in zip(rows[0][1:], row[1:])}
+    raise AssertionError(f"bench_results/{driver}_error.csv has no row at {size}")
+
+
+def _error_bound(driver: str, col: str, jax_row: dict) -> float:
+    if "oracle" in col:
+        return ORACLE_BOUND[driver]
+    if not any(st in col for st in ("bf16", "f16", "f8")):
+        if driver == "trsv":
+            return TRSV_F32_BOUND
+        return DF64_BOUND if "df64" in col else F32_BOUND
+    return 4 * max(jax_row[col], 2.0**-8)
+
+
+def _check_draws(dev) -> list[str]:
+    """The card's draws of the drivers' largest operands against their numpy
+    replay, bit for bit, on the first and last 2^20 elements; the df64 split
+    against the host master there."""
+    from accblas_tpu_torch.utils import devgen
+
+    bad = []
+    k = 2**20
+    for role, shape in (("dot_x", (2**27,)), ("gemv_a", (N_GEMV, N_GEMV))):
+        t = devgen.gen_f32(shape, SEED, role, 0, device=dev).view(-1)
+        n = t.numel()
+        for lo, hi in ((0, min(k, n)), (max(n - k, 0), n)):
+            want = devgen.replay_f32(shape, SEED, role, 0, lo, hi)
+            same = np.array_equal(t[lo:hi].cpu().numpy().view(np.uint32), want.view(np.uint32))
+            log(f"draw {role} {shape} elements [{lo}, {hi}): bits equal to the numpy "
+                f"replay={same}")
+            if not same:
+                bad.append(f"gen_f32 {role} [{lo}, {hi}) differs from its numpy replay")
+        del t
+    xh, xl = devgen.split_df64(None, (k,), SEED, "dot_x", 0, dev)
+    m = devgen.master_f64((k,), SEED, "dot_x", 0)
+    same = np.array_equal(xh.cpu().numpy(), m.astype(np.float32))
+    gap = float(np.max(np.abs(xh.double().cpu().numpy() + xl.double().cpu().numpy() - m)
+                       / np.abs(m)))
+    log(f"split_df64 dot_x: hi equals fl32(master)={same}, max |hi + lo - master| / |master| "
+        f"= {gap:.3e} (bound 2^-45)")
+    if not (same and gap < 2.0**-45):
+        bad.append("split_df64 does not carry the master")
+    return bad
+
+
+def phase_drivers() -> None:
+    """The benchmark drivers (accblas_tpu_torch.bench) at their default sizes
+    through their main(): each CSV printed, every cell finite, every error
+    cell within its bound, and the draws checked against their replay. The
+    launch counters are reset just before the drivers and read just after:
+    the DOT, GEMV and both TRSV kernels must have run."""
+    import contextlib
+    import io
+
+    from accblas_tpu_torch.bench import dot_benchmark, gemv_benchmark, trsv_benchmark
+    from accblas_tpu_torch.native import host
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.ops import trsv as trsvops
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    log(f"drivers: host data from {host.describe()}")
+    bad = _check_draws(dev)
+    modules = {"dot": dot_benchmark, "gemv": gemv_benchmark, "trsv": trsv_benchmark}
+    dotops.launches = gemvops.launches = 0
+    trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
+    t_phase = time.perf_counter()
+    for driver, mode, argv in DRIVER_RUNS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            modules[driver].main(argv)
+        torch.cuda.synchronize()
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"csv {driver} {mode}: {line}")
+        log(f"driver {driver} {mode}: {time.perf_counter() - t0:.1f} s")
+        header = lines[0].split(";")
+        for row in lines[1:]:
+            cells = row.split(";")
+            size = int(cells[0])
+            jax_row = _jax_error_row(driver, size) if mode == "error" else {}
+            for col, cell in zip(header[1:], cells[1:]):
+                v = float(cell)
+                if mode != "error":
+                    ok, what = math.isfinite(v) and v > 0, "GFLOP/s not finite and positive"
+                else:
+                    b = _error_bound(driver, col, jax_row)
+                    ok, what = v <= b, f"error above {b:.3e}"  # NaN fails too
+                if not ok:
+                    bad.append(f"{driver} {mode} {col} at {size}: {cell} ({what})")
+    launches = {"dot": dotops.launches, "gemv": gemvops.launches,
+                "trsv_leaf_diag": trsvops.leaf_diag_launches,
+                "trsv_sweep": trsvops.sweep_launches}
+    log(f"drivers launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    bad += [f"the drivers never launched {k}" for k, v in launches.items() if v < 1]
+    if bad:
+        raise AssertionError("drivers phase failed:\n" + "\n".join(bad))
+
+
 def _run(name: str, phase):
     """Run a phase; a CUDA fault fails the run with a message naming it."""
     try:
@@ -964,6 +1131,7 @@ def main() -> int:
     _run("trsv checks", phase_trsv_checks)
     kernels = _run("dot/gemv main path", phase_main)
     kernels += _run("trsv main path", phase_main_trsv)
+    _run("drivers", phase_drivers)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -189,13 +189,13 @@ def main() -> int:
     libs = build(jobs)
 
     dev = torch.device("cuda", 0)
-    a = devgen.gen_f32((N, N), 42, "gemv_a", dev).to(torch.bfloat16)
-    x = devgen.gen_f32((N,), 42, "gemv_x", dev).to(torch.bfloat16)
+    a = devgen.gen_f32((N, N), 42, "gemv_a", device=dev).to(torch.bfloat16)
+    x = devgen.gen_f32((N,), 42, "gemv_x", device=dev).to(torch.bfloat16)
     a32, x32 = a.float(), x.float()
     # a row pitch that is not a power of two
     w = N + 64
-    aw = devgen.gen_f32((N, w), 42, "gemv_a", dev).to(torch.bfloat16)
-    xw = devgen.gen_f32((w,), 42, "gemv_x", dev).to(torch.bfloat16)
+    aw = devgen.gen_f32((N, w), 42, "gemv_a", device=dev).to(torch.bfloat16)
+    xw = devgen.gen_f32((w,), 42, "gemv_x", device=dev).to(torch.bfloat16)
     res = torch.zeros(N, device=dev)
     out = torch.empty(N, device=dev)
     stream = torch.cuda.current_stream().cuda_stream

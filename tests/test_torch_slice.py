@@ -90,7 +90,12 @@ def test_port_imports_no_jax():
         "import sys, accblas_tpu_torch, accblas_tpu_torch.ops.dot, accblas_tpu_torch.ops.gemv, "
         "accblas_tpu_torch.ops.trsv, accblas_tpu_torch.ops.tri_gemv, "
         "accblas_tpu_torch.ops._build, accblas_tpu_torch.ops.common, "
-        "accblas_tpu_torch.utils.bench, accblas_tpu_torch.utils.tolerance; "
+        "accblas_tpu_torch.utils.bench, accblas_tpu_torch.utils.tolerance, "
+        "accblas_tpu_torch.ops.oracle, accblas_tpu_torch.utils.devgen, "
+        "accblas_tpu_torch.utils.sr, accblas_tpu_torch.utils.memory, "
+        "accblas_tpu_torch.native.host, accblas_tpu_torch.bench.common, "
+        "accblas_tpu_torch.bench.dot_benchmark, accblas_tpu_torch.bench.gemv_benchmark, "
+        "accblas_tpu_torch.bench.trsv_benchmark, accblas_tpu_torch.bench.plot; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'accblas_tpu')); print(bad); sys.exit(1 if bad else 0)"
     )

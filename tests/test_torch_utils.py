@@ -87,12 +87,12 @@ def test_interop_keeps_bits(st, np_dtype):
 
 
 def test_devgen_seeded_uniform():
-    a = devgen.gen_f32((4096,), 42, "dot_x")
+    a = devgen.gen_f32((4096,), 42, "dot_x", device="cpu")
     assert a.dtype == torch.float32 and a.shape == (4096,)
-    assert torch.equal(a, devgen.gen_f32((4096,), 42, "dot_x"))
-    assert not torch.equal(a, devgen.gen_f32((4096,), 42, "dot_y"))
-    assert not torch.equal(a, devgen.gen_f32((4096,), 43, "dot_x"))
-    assert not torch.equal(a, devgen.gen_f32((4096,), 42, "a probe role"))
+    assert torch.equal(a, devgen.gen_f32((4096,), 42, "dot_x", device="cpu"))
+    assert not torch.equal(a, devgen.gen_f32((4096,), 42, "dot_y", device="cpu"))
+    assert not torch.equal(a, devgen.gen_f32((4096,), 43, "dot_x", device="cpu"))
+    assert not torch.equal(a, devgen.gen_f32((4096,), 42, "a probe role", device="cpu"))
     assert float(a.min()) >= -1.0 and float(a.max()) < 1.0
     assert abs(float(a.mean())) < 0.05 and abs(float(a.std()) - 3**-0.5) < 0.02
 
