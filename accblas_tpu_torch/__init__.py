@@ -6,7 +6,9 @@ an accessor (Range / ReducedRowMajor) decoupling storage precision from
 arithmetic precision, and the DOT, GEMV and TRSV/TRSM families, each in
 fixed-precision, accessor mixed-precision and vendor tiers. CUDA tensors run hand-written
 kernels built from ``csrc/`` at first use; CPU tensors run the same functions
-in plain torch ops. This package never imports jax.
+in plain torch ops. The mixed-precision solvers (CG, Richardson refinement,
+the power method) are in ``accblas_tpu_torch.models``. This package never
+imports jax.
 """
 
 from .accessor.dtypes import canon, promote

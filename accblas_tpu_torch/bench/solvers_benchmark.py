@@ -1,0 +1,114 @@
+"""Solver-tier benchmark driver (counterpart of
+``accblas_tpu.bench.solvers_benchmark``, with its columns and CSV): CG on
+an SPD system at every (storage x dot-arithmetic) pairing.
+
+    python -m accblas_tpu_torch.bench.solvers_benchmark [--size N] [--sweep single] [--device cpu]
+
+For each size it reports, per variant (f32/f32, f32/df64, bf16/f32,
+bf16/df64: storage of A / arithmetic of the matvec and the dots):
+
+- ``it_per_s``, the iteration rate: the slope between CG solves of
+  ITERS_LO and ITERS_HI iterations, (ITERS_HI - ITERS_LO) / (t_hi - t_lo),
+  which cancels each call's set-up (the first dot products). Each budget is
+  timed with the drivers' protocol (``common.timer``: CUDA events on a
+  card, 1 warm-up, 10 reps, minimum; the host clock with ``--device cpu``);
+- ``resid``, the relative residual |b - A x| / |b| after ITERS_HI
+  iterations: A x by the df64 precise GEMV against the f32-stored operator,
+  the difference and the norms in numpy fp64.
+
+The system is A = Cᵀ C / n + 0.01 I with C uniform(-1, 1), drawn on the
+device (``utils.devgen``, the port's own stream, so the values are not the
+JAX driver's), and b uniform(-1, 1). One line each for
+``richardson_refine`` and ``power_method`` goes to stderr at the last size.
+The JAX driver's ``--pcg`` table needs the sharded layer, which the port
+does not have yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import common
+
+ITERS_LO, ITERS_HI = 20, 120
+
+DEFAULT_SIZE = 8192
+MIN_SIZE = 512
+SEED = 42
+
+NAMES = ["CG f32/f32", "CG f32/df64", "CG bf16/f32", "CG bf16/df64"]
+
+
+def spd_system(n: int, seed: int, device):
+    """A = Cᵀ C / n + 0.01 I (Wishart plus a ridge, kappa ~ 400: hard enough
+    that a 120-iteration budget is spent) and b, both f32 on `device`. The
+    product is genuine f32 (``ieee_f32``)."""
+    from ..ops.trsv import ieee_f32
+    from ..utils import devgen
+
+    c = devgen.gen_f32((n, n), seed, "solvers_c", device=device)
+    with ieee_f32():
+        a = torch.matmul(c.T, c).div_(n)
+    a.diagonal().add_(0.01)
+    return a, devgen.gen_f32((n,), seed, "solvers_b", device=device)
+
+
+def df64_residual(a32, b, x) -> float:
+    """|b - A x| / |b| with A x from the df64 precise GEMV on the f32-stored
+    operator, then numpy fp64."""
+    from ..ops import gemv as gemvops
+
+    res = torch.empty(a32.shape[0], dtype=torch.float32, device=a32.device)
+    ax = gemvops.acc_gemv(a32, x, res, 1.0, 0.0, ar="df64", precise=True)
+    b64 = b.double().cpu().numpy()
+    r = b64 - ax.double().cpu().numpy()
+    return float(np.linalg.norm(r) / np.linalg.norm(b64))
+
+
+def main(argv=None):
+    args = common.parse_args("solvers_benchmark", DEFAULT_SIZE, MIN_SIZE, argv=argv)
+    from ..models import solvers
+
+    dev = args.device
+    sizes = common.sweep_sizes(args, MIN_SIZE, 256, dense_step=2048)
+    common.emit_header("n", [f"{name} {col}" for name in NAMES for col in ("it_per_s", "resid")])
+    timer = common.timer(dev)
+    for n in sizes:
+        a32, b = spd_system(n, SEED, dev)
+        ab = a32.to(torch.bfloat16)
+        variants = [(NAMES[0], a32, "f32"), (NAMES[1], a32, "df64"),
+                    (NAMES[2], ab, "f32"), (NAMES[3], ab, "df64")]
+        vals = []
+        for name, a, ar in variants:
+            def measure(name=name, a=a, ar=ar):
+                x = solvers.cg(a, b, iters=ITERS_HI, ar=ar)[0]
+                t_lo = timer(lambda: solvers.cg(a, b, iters=ITERS_LO, ar=ar))
+                t_hi = timer(lambda: solvers.cg(a, b, iters=ITERS_HI, ar=ar))
+                # a non-positive slope means the two budgets timed the same
+                # work: NaN, not a rate
+                rate = ((ITERS_HI - ITERS_LO) / (t_hi - t_lo) * 1e3 if t_hi > t_lo
+                        else float("nan"))
+                resid = df64_residual(a32, b, x)
+                common.progress(f"n={n} {name}: {rate:.1f} it/s ({t_lo:.4f}/{t_hi:.4f} ms at "
+                                f"{ITERS_LO}/{ITERS_HI} iters), resid {resid:.3e}")
+                return rate, resid
+
+            try:
+                vals.extend(measure())
+            except Exception as e:  # noqa: BLE001 - one variant's fault, reported
+                common.progress(f"FAILED n={n} {name}: {type(e).__name__}: {str(e)[:200]}")
+                vals.extend([float("nan"), float("nan")])
+        common.emit_row(n, vals)
+
+    # the two other solvers: one line each at the last size (their value is
+    # the convergence property, which the tests hold)
+    _, rhist = solvers.richardson_refine(ab, a32, b, iters=6, ar="df64")
+    common.progress(f"richardson bf16-precond/f32-residual: |r|^2 {float(rhist[-1]):.3e} "
+                    f"after 6 iters")
+    _, lam = solvers.power_method(a32, iters=15, ar="f32")
+    common.progress(f"power_method lambda_max ~= {float(lam):.6f}")
+
+
+if __name__ == "__main__":
+    main()

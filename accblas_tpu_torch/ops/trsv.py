@@ -10,7 +10,9 @@
 - ``xla_trsv`` / ``xla_trsm``: the vendor tier,
   ``torch.linalg.solve_triangular`` in genuine f32.
 
-Every solve is a blocked sweep in two phases, as in the JAX package:
+A solve takes one of two routes, as in the JAX package.
+
+**The sweep**, in two phases:
 
 1. the ``LEAF`` x ``LEAF`` diagonal tiles of A are gathered as f32 and
    masked to the triangle, identity past n (``_extract_leaf_diag``), then
@@ -27,6 +29,19 @@ whose CTAs, one per ``LEAF``-row block row, order themselves by tickets. A
 CPU tensor runs ``_extract_leaf_diag_plain`` and ``_trsv_sweep_plain``, the
 same functions in plain torch ops; the plain sweep keeps the JAX kernel's
 ``BLOCK``-row arithmetic. Nothing falls back from one to the other.
+
+**The blocked compositions** (``_trsv_small``, f32 arithmetic, and
+``_trsm_small_df64``, the solved panels carried as (hi, lo) pairs): the
+JAX package's XLA compositions, here torch ops over cuBLAS in genuine f32
+(``ieee_f32``). The diagonal blocks of ``_block_for(n)`` rows are inverted
+in one batch (``_masked_tri_inverse``); each block step then takes one
+product with the solved panel and one with its block's inverse, so every
+block of A is read once for all k right-hand sides. On either device they
+are the same torch ops.
+
+``resident=True`` forces the composition (f32 arithmetic), ``False`` the
+sweep; ``None`` routes by ``_route``: on a CPU tensor as the JAX package
+routes off a TPU, on a CUDA tensor by a gate measured on an H100.
 Counterpart of ``accblas_tpu.ops.trsv``.
 """
 
@@ -133,17 +148,29 @@ def _extract_leaf_diag(a: torch.Tensor, m: int, lower: bool, unit: bool) -> torc
 
 
 def _leaf_inverses(d: torch.Tensor, lower: bool) -> torch.Tensor:
-    """Phase 1: the inverses of the masked leaves `d` (m, LEAF, LEAF),
-    solved against the identity by ``torch.linalg.solve_triangular`` in
-    genuine f32 (``ieee_f32``). Unlike the JAX package's they are not
-    transposed, and they stay in the layout the solve returns (column-major
-    per leaf from cuBLAS), which the sweep kernel reads as it is."""
+    """The inverses of a (g, s, s) stack of triangular blocks `d`, already
+    masked, any s: solved against the identity by
+    ``torch.linalg.solve_triangular`` in genuine f32 (``ieee_f32``). For the
+    sweep's leaves (phase 1) they are not transposed, unlike the JAX
+    package's, and stay in the layout the solve returns (column-major per
+    leaf from cuBLAS), which the sweep kernel reads as it is."""
     s = d.shape[-1]
     eye = _EYE.get((d.device, s))
     if eye is None:
         eye = _EYE[(d.device, s)] = torch.eye(s, dtype=torch.float32, device=d.device)
     with ieee_f32():
         return torch.linalg.solve_triangular(d, eye.expand(d.shape), upper=not lower)
+
+
+def _masked_tri_inverse(d: torch.Tensor, lower: bool, unit: bool, *, n=None,
+                        offs=None) -> torch.Tensor:
+    """Inverse of a (g, s, s) f32 stack of triangular blocks: the dead
+    triangle zeroed and the diagonal forced to 1 if `unit`, lanes past a
+    logical size `n` continued as the identity when `offs` gives each
+    block's global row offset (``tri_mask``), then solved against the
+    identity (``_leaf_inverses``). Counterpart of the JAX package's
+    ``_masked_tri_inverse``."""
+    return _leaf_inverses(tri_mask(d, lower, unit, n=n, offs=offs), lower)
 
 
 def _check_inverses(inv: torch.Tensor, n: int):
@@ -271,17 +298,199 @@ def _trsv_sweep(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tensor:
     return _trsv_sweep_plain(a, inv, bt, lower, ar, out_dtype)
 
 
+# --------------------------------------------------------------------------
+# the blocked compositions
+# --------------------------------------------------------------------------
+
+def _block_for(n: int) -> int:
+    """Block rows of the blocked compositions: 512 from n = 1024, smaller
+    below so the ragged last block stays bounded (the JAX package's)."""
+    if n >= 1024:
+        return BLOCK
+    if n >= 512:
+        return 256
+    return 128
+
+
+def _diag_blocks(a: torch.Tensor, block: int) -> list:
+    """A's diagonal blocks of `block` rows, as views: a (nfull, block,
+    block) stack of the full ones, then the ragged last one as (1, s, s)."""
+    n = a.shape[0]
+    nfull = n // block
+    s0, s1 = a.stride()
+    out = []
+    if nfull:
+        out.append(a.as_strided((nfull, block, block), (block * (s0 + s1), s0, s1),
+                                a.storage_offset()))
+    if nfull * block < n:
+        r0 = nfull * block
+        out.append(a[None, r0:, r0:])
+    return out
+
+
+def _block_inverses(a, block: int, lower: bool, unit: bool, masked: bool):
+    """The inverses of f32 A's masked diagonal blocks, a list in block order
+    (``_masked_tri_inverse``, one batched solve for the full blocks); with
+    `masked`, also the masked blocks themselves (the refinement's T_bb),
+    else None."""
+    stacks = _diag_blocks(a, block)
+    inv = [v for d in stacks for v in _masked_tri_inverse(d, lower, unit)]
+    tri = [v for d in stacks for v in tri_mask(d, lower, unit)] if masked else None
+    return inv, tri
+
+
+def _steps(n: int, block: int, lower: bool):
+    """The block steps in dependency order: (r0, r1), the block's rows, and
+    (c0, c1), the columns already solved (c0 == c1 for the first)."""
+    nb = -(-n // block)
+    for bi in range(nb) if lower else range(nb - 1, -1, -1):
+        r0, r1 = bi * block, min(n, (bi + 1) * block)
+        yield bi, (r0, r1), ((0, r0) if lower else (r1, n))
+
+
+def _trsv_small(a, b, uplo: str, unit: bool, st_out: str, block=None, *, refine=None):
+    """The blocked TRSV/TRSM composition in f32 arithmetic (the JAX
+    package's ``_trsv_small``): `b` (n,) or (n, k). Block by block in
+    dependency order, rhs = b_b - A[b, solved] @ x[solved], then
+    x_b = inv(T_bb) @ rhs with the inverses from one batched solve. The
+    solved blocks are written into one (n, k) f32 buffer, whose solved rows
+    are then a view; the panel A[b, solved] is a strided view too, which
+    cuBLAS reads in place. The last block is simply smaller when `block`
+    does not divide n.
+
+    `refine` (None: k < 32, f32 storage and n >= 512) takes one residual
+    step on each block, x_b += inv @ (rhs - T_bb @ x_b), which lifts the
+    inverse's forward error back to substitution class.
+
+    Narrow storage is cast to f32 once, upfront. The JAX package casts each
+    panel where it is read for k < 32 above n = 2048, which XLA fuses into
+    the product; in eager torch that is one more op per block step. On an
+    NVIDIA H100 (700 W; bf16 storage, k = 1, 8, 16 at n = 4096, 8192 and
+    16384; scripts/torch_trsm_routes.py) the upfront cast took less time
+    per call at 6 of 9 points, e.g. 3.01 against 5.18 ms at 16384 and
+    k = 16, 1.35 against 2.42 ms at 8192 and k = 8, and lost by 0.38 ms at
+    most, though per-slice read up to 21% less device time at k = 1. The
+    cast is exact, so the bits are the same either way.
+    """
+    n = a.shape[0]
+    vec = b.dim() == 1
+    b2 = (b.reshape(n, 1) if vec else b).float()
+    k = b2.shape[1]
+    lower = uplo == "lower"
+    f32_storage = a.dtype == torch.float32
+    block = _block_for(n) if block is None else block
+    if refine is None:
+        refine = k < 32 and f32_storage and n >= 512
+    a = a.float()
+    x = torch.empty(n, k, dtype=torch.float32, device=a.device)
+    with ieee_f32():
+        inv, tri = _block_inverses(a, block, lower, unit, refine)
+        for bi, (r0, r1), (c0, c1) in _steps(n, block, lower):
+            rhs = b2[r0:r1]
+            if c1 > c0:
+                rhs = torch.addmm(rhs, a[r0:r1, c0:c1], x[c0:c1], alpha=-1)
+            xb = x[r0:r1]
+            torch.mm(inv[bi], rhs, out=xb)
+            if refine:
+                xb.addmm_(inv[bi], torch.addmm(rhs, tri[bi], xb, alpha=-1))
+    x = x.to(dtypes.torch_dtype(st_out))
+    return x[:, 0] if vec else x
+
+
+def _trsm_small_df64(a, b, uplo: str, unit: bool, st_out: str, refine: bool = True,
+                     block=None):
+    """The blocked composition with the solved panels and the correction
+    carried as (hi, lo) pairs (the JAX package's ``_trsm_small_df64``):
+    each block step takes the products of the panel with the solved hi and
+    lo words and folds them into the right-hand side with ``df_add``, then
+    applies the block's inverse to both words. `refine` adds one DF
+    residual step per block, x_b += inv @ (rhs - T_bb @ x_b) evaluated in
+    DF; the term inv @ r.lo is dropped, as in the JAX package (r is already
+    O(eps) of rhs). Every product is genuine f32; the JAX package runs the
+    lo products at its default precision. Returns the hi words in
+    `st_out`."""
+    n = a.shape[0]
+    vec = b.dim() == 1
+    b2 = (b.reshape(n, 1) if vec else b).float()
+    k = b2.shape[1]
+    lower = uplo == "lower"
+    block = _block_for(n) if block is None else block
+    a = a.float()
+    x_hi = torch.empty(n, k, dtype=torch.float32, device=a.device)
+    x_lo = torch.empty(n, k, dtype=torch.float32, device=a.device)
+    with ieee_f32():
+        inv, tri = _block_inverses(a, block, lower, unit, refine)
+        for bi, (r0, r1), (c0, c1) in _steps(n, block, lower):
+            rhs = dfm.df_from(b2[r0:r1])
+            if c1 > c0:
+                panel = a[r0:r1, c0:c1]
+                th, tl = panel @ x_hi[c0:c1], panel @ x_lo[c0:c1]
+                rhs = dfm.df_add(rhs, dfm.df_from(-th))
+                rhs = dfm.df_add(rhs, dfm.df_from(-tl))
+            xb = dfm.df_add(dfm.df_from(inv[bi] @ rhs.hi), dfm.df_from(inv[bi] @ rhs.lo))
+            if refine:
+                t = dfm.df_add(dfm.df_from(tri[bi] @ xb.hi), dfm.df_from(tri[bi] @ xb.lo))
+                r = dfm.df_sub(rhs, t)
+                xb = dfm.df_add(xb, dfm.df_from(inv[bi] @ r.hi))
+            x_hi[r0:r1], x_lo[r0:r1] = xb.hi, xb.lo
+    x = x_hi.to(dtypes.torch_dtype(st_out))
+    return x[:, 0] if vec else x
+
+
+# --------------------------------------------------------------------------
+# the route
+# --------------------------------------------------------------------------
+
+# The CUDA gate, from chip_smoke.py's "trsm routes" lines on an NVIDIA H100
+# 80GB HBM3 at 700 W (upper non-unit LU factor, CUDA-event ms, sweep against
+# composition, f32 storage then bf16). The composition is host-bound (~100
+# to ~250 torch ops a call, 1.3-3 ms whatever k, up to twice that on a busy
+# host), while the sweep's time grows with n²·k:
+# - n = 16384: k = 16 1.70 against 3.71; k = 32 2.83 against 2.64 (bf16
+#   2.89 against 2.69; another run 3.02 against 3.15: a tie, so the sweep);
+#   k = 64 5.13 against 2.04 (bf16 4.98 against 3.34); k = 128 9.65 against
+#   3.04;
+# - n = 8192: k = 32 1.01 against 1.74; k = 64 1.70 against 1.25 (bf16
+#   1.63 against 1.92); k = 128 3.04 against 1.27 (bf16 2.67 against 1.52);
+# - n = 4096: k = 128 0.89 against 1.74.
+# So the f32 tier takes the composition for k >= COMPOSITION_K once n²·k
+# reaches COMPOSITION_WORK: 8192 at k = 128, 16384 at k = 64, the points it
+# wins in every run. Its accuracy differs from the sweep's: on that factor
+# at 16384 the composition errs 2.1e-4 (512-row block inverses, unrefined
+# for k >= 32) where the sweep errs 6.0e-5, at 8192 1.0e-4 against 2.1e-5,
+# so the default route's error changes at this boundary. The df64
+# composition (~3000 launches at 16384, 24-43 ms) loses to the df64 sweep
+# (0.8-16.6 ms) at every point, so df64 stays on the sweep.
+COMPOSITION_K = 64
+COMPOSITION_WORK = 128 * 8192**2
+
+
+def _route(n: int, k: int, st: str, ar: str, device_type: str) -> str:
+    """Where ``resident=None`` sends a solve of n rows and k right-hand
+    sides on A of storage `st` in arithmetic `ar`: "composition" or
+    "sweep".
+
+    - CPU: as the JAX package routes off a TPU (its ``_use_small`` is
+      False there): the sweep, but df64 panels of k >= 32 take the DF
+      composition.
+    - CUDA: the gate measured on the H100 (above), the same for every
+      storage: the f32 tier's wide panels at large n take the composition,
+      everything else the sweep.
+    """
+    if device_type != "cuda":
+        return "composition" if ar == "df64" and k >= 32 else "sweep"
+    if ar == "f32" and k >= COMPOSITION_K and n * n * k >= COMPOSITION_WORK:
+        return "composition"
+    return "sweep"
+
+
 def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str = "f32"):
-    """Solve T X = B for B of shape (n, k); returns X (n, k) in `st_out`."""
+    """Solve T X = B for B of shape (n, k); returns X (n, k) in `st_out`.
+    `resident`: True the composition, False the sweep, None ``_route``."""
     n = a.shape[0]
     if a.dim() != 2 or a.shape != (n, n) or b.dim() != 2 or b.shape[0] != n:
         raise ValueError(f"trsm needs square A and (n, k) B, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    if resident is True:
-        raise NotImplementedError(
-            "resident=True selects the blocked torch composition (_trsv_small), which "
-            "the port does not have yet (ROADMAP.md queue A, A2)"
-        )
     _build.storage_code(a, "trsv A")
     if st_out not in _build.STORAGE_CODE:
         raise ValueError(f"trsv result: {st_out} is not a kernel storage type "
@@ -291,6 +500,11 @@ def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str 
     k = b.shape[1]
     if n == 0 or k == 0:
         return torch.empty(n, k, dtype=out_dtype, device=a.device)
+    if resident is None:
+        resident = _route(n, k, dtypes.canon(a.dtype), ar, a.device.type) == "composition"
+    if resident:
+        small = _trsm_small_df64 if ar == "df64" else _trsv_small
+        return small(a, b, uplo, unit, st_out)
     lower = uplo == "lower"
     nb = -(-n // BLOCK)
     inv = _leaf_inverses(_extract_leaf_diag(a, nb * BLOCK // LEAF, lower, unit), lower)
@@ -335,8 +549,8 @@ def trsv(a, b, uplo: str = "upper", unit: bool = True, *, resident=None,
          unstable_ok: bool = False):
     """Fixed-precision TRSV: f32 arithmetic, the result in the storage of b.
     A holds a full (e.g. LU-packed) matrix; only the selected triangle is
-    read. `resident=True` (the JAX package's blocked composition) is not
-    ported yet and raises. bf16 storage beyond n=1024 warns."""
+    read. `resident=True` takes the blocked composition, False the sweep,
+    None the route ``_route`` picks. bf16 storage beyond n=1024 warns."""
     _check_bf16_envelope(a, a.shape[0], "f32", unstable_ok, "trsv")
     return _trsv_impl(a, b, uplo, unit, dtypes.canon(b.dtype), resident=resident)
 
@@ -356,7 +570,7 @@ def acc_trsv(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
     if ar != "df64":
         raise NotImplementedError(f"acc_trsv arithmetic {ar!r}")
     _df64_resident(resident, "acc_trsv")
-    return _trsv_impl(a, b, uplo, unit, st_out, ar="df64")
+    return _trsv_impl(a, b, uplo, unit, st_out, resident=False, ar="df64")
 
 
 def trsm(a, b, uplo: str = "upper", unit: bool = True, *, resident=None,
@@ -370,7 +584,9 @@ def trsm(a, b, uplo: str = "upper", unit: bool = True, *, resident=None,
 def acc_trsm(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
              resident=None, unstable_ok: bool = False):
     """Accessor mixed-precision TRSM: storage from the tensors, arithmetic
-    per `ar` ('f32' or 'df64'), as acc_trsv."""
+    per `ar` ('f32' or 'df64'), as acc_trsv. In df64, wide panels may take
+    the DF composition (``_trsm_small_df64``, see ``_route``);
+    resident=False forces the sweep and resident=True raises."""
     ar = dtypes.check_arithmetic(ar)
     st_out = dtypes.canon(b.dtype)
     _check_bf16_envelope(a, a.shape[0], ar, unstable_ok, "acc_trsm")
@@ -380,7 +596,7 @@ def acc_trsm(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
     if ar != "df64":
         raise NotImplementedError(f"acc_trsm arithmetic {ar!r}")
     _df64_resident(resident, "acc_trsm")
-    return _trsm_impl(a, b, uplo, unit, st_out, ar="df64")
+    return _trsm_impl(a, b, uplo, unit, st_out, resident=resident, ar="df64")
 
 
 def xla_trsm(a, b, uplo: str = "upper", unit: bool = True):

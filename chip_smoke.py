@@ -49,7 +49,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      4 x max(the JAX package's error in bench_results/ at that size, 2^-8)),
      a draw of gen_f32 that differs in any bit from its numpy replay (first
      and last 2^20 elements), or a kernel of the path (DOT, GEMV, the leaf
-     gather, the sweep) that the drivers never launched.
+     gather, the sweep) that the drivers never launched;
+  7. trsm routes: on the LU factor of the TRSV driver's master at n = 4096,
+     8192 and 16384, k = 1, 8, 16, 32, 64 and 128 (upper, non-unit), the
+     sweep, the blocked composition and xla_trsm side by side for f32
+     storage and bf16 storage in the f32 tier and f32 storage in the df64
+     tier: each checked against float64 (and the composition against its
+     own CPU run), timed (CUDA events), its device records, device ms and
+     host ms per call, and the route resident=None takes ("route" lines);
+     then every route at n = 1024 on the JAX tests' operand, to their
+     bounds;
+  8. solvers: the solver driver at its default n = 8192 (the CSV printed,
+     every it_per_s finite and positive, every resid within 4 x the v5e
+     cell, the DOT and GEMV kernels launched), CG through the kernels
+     against CG with the plain versions injected at n = 1024, and one CG
+     iteration split into event, device and host time ("split cg" lines).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A CUDA fault fails the run naming the phase;
 in a TRSV phase that includes the sweep's bounded spin-wait, which traps
@@ -568,7 +582,7 @@ def phase_main() -> list[dict]:
     dot_bytes = N_DOT * (2 + 2)
     dot_bound, dot_by = bound(dot_bytes, 2 * N_DOT)
     # both passes of the DOT count as one launch of its wrapper
-    dot_prof, _ = profile_calls(f"dot Acc<f32,bf16> n={N_DOT}", dot_k,
+    dot_prof, *_ = profile_calls(f"dot Acc<f32,bf16> n={N_DOT}", dot_k,
                                 {k: lambda: dotops.launches for k in ("dot_partials",
                                                                       "dot_finish")})
     dot_dev_ms = sum(ms for ms, _ in dot_prof.values())
@@ -636,7 +650,7 @@ def phase_main() -> list[dict]:
     ]
 
 
-def profile_calls(label: str, fn, counted: dict, calls: int = 5):
+def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):
     """Device time by kernel over `calls` calls of `fn` (torch.profiler,
     "Self CUDA"), and the calls' wall time: where a call's time goes.
     `counted` maps a name in a port kernel's symbol to a function reading
@@ -644,14 +658,16 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5):
     so a kernel's device ms per call is its mean time per record times the
     launches its wrapper counted per call; a drop is logged. A port kernel
     (namespace accblas) that no counter names, or more records than counted
-    launches, fails the run. Returns ({name: (device ms, launches) per call},
-    device busy ms per call)."""
+    launches, fails the run. The `top` costliest records are logged.
+    Returns ({name: (device ms, launches) per call}, device busy ms per
+    call, device records per call: kernels, memsets and copies, of which
+    the profiler may drop a few)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
         before = {name: read() for name, read in counted.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -666,12 +682,14 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5):
                        for e in prof.key_averages() if e.self_device_time_total > 0),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in rows if r[3]) / calls
+        per_call = sum(r[2] for r in rows if r[3]) / calls
         if busy > 0:
             break
         # the trace came back without one device record: profile again
         log(f"profile {label}: no device records in the trace (attempt {attempt + 1})")
-    log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
-    for key, ms, count, _ in rows[:8]:
+    if top:
+        log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
+    for key, ms, count, _ in rows[:top]:
         log(f"  {ms / calls:9.4f} ms/call  {count:4d} records/{calls} calls  {key[:90]}")
     for key, *_ in rows:
         if "accblas::" in key and not any(name in key for name in counted):
@@ -687,7 +705,7 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5):
             log(f"  the profiler dropped {n - records} of {n} {name} records; its ms/call "
                 f"is the mean record times the counted launches")
         out[name] = (sum(r[1] for r in hits) / records * n / calls, n / calls)
-    return out, busy
+    return out, busy, per_call
 
 
 def host_us(fn, reps: int = 2000) -> float:
@@ -707,6 +725,27 @@ def host_us(fn, reps: int = 2000) -> float:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     return sorted(times)[reps // 2] * 1e6
+
+
+def paired_ms(fn, reps: int = 7) -> tuple[float, float]:
+    """CUDA-event ms and host ms of the same `reps` calls of `fn`, each
+    started on a drained queue: (median event ms, median host ms). The host
+    ms is the time the call takes to return; the event ms runs from before
+    its first launch to the end of its last kernel, so the two agree when
+    the call's host work is the longer."""
+    fn()
+    ev, host = [], []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.synchronize()
+        ev.append(e0.elapsed_time(e1))
+    return sorted(ev)[reps // 2], sorted(host)[reps // 2]
 
 
 def _bare_launch(call):
@@ -765,7 +804,7 @@ def gemv_split(label: str, call, plain, lib, m: int, dev) -> dict:
     t = [benchmark_function(f) for f in order]
     ms, plain_ms = min(t[0], t[-1]), min(t[len(t) // 2 - 1], t[len(t) // 2])
     lib_ms = None if lib is None else min(t[1], t[-2])
-    prof, _ = profile_calls(f"gemv {label}", call, {"gemv_rows": lambda: gemvops.launches})
+    prof, *_ = profile_calls(f"gemv {label}", call, {"gemv_rows": lambda: gemvops.launches})
     dev_ms = prof["gemv_rows"][0]
     lib_dev = None if lib is None else profile_calls(f"torch.mv {label}", lib, {})[1]
     fn, args, _out = _bare_launch(call)
@@ -926,7 +965,7 @@ def phase_main_trsv() -> list[dict]:
     for label, fn, ar in ((f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True), "f32"),
                           (f"acc_trsv df64 n={n}",
                            lambda: acc_trsv(a, b, "upper", True, ar="df64"), "df64")):
-        prof, _ = profile_calls(label, fn, trsv_counted)
+        prof, *_ = profile_calls(label, fn, trsv_counted)
         (sweep_ms, sweep_n), (gather_ms, gather_n) = prof["trsv_sweep"], prof["leaf_diag"]
         log(f"  per call: {sweep_n:g} trsv_sweep launch(es) {sweep_ms:.4f} ms, {gather_n:g} "
             f"leaf_diag launch(es) {gather_ms:.4f} ms")
@@ -1001,17 +1040,17 @@ F32_BOUND, DF64_BOUND, TRSV_F32_BOUND = 1e-5, 5e-7, 1e-4
 ORACLE_BOUND = {"dot": 1e-12, "gemv": 1e-12, "trsv": 1e-11}
 
 
-def _jax_error_row(driver: str, size: int) -> dict:
-    """The JAX package's error CSV row at `size` (bench_results/, v5e),
-    keyed by the port's column names."""
+def _v5e_row(csv: str, size: int) -> dict:
+    """The row at `size` of one of the JAX package's CSVs (bench_results/,
+    v5e), keyed by the port's column names."""
     from accblas_tpu_torch.bench.common import DELIM, vendor_name
 
-    with open(Path(__file__).resolve().parent / "bench_results" / f"{driver}_error.csv") as f:
+    with open(Path(__file__).resolve().parent / "bench_results" / csv) as f:
         rows = [ln.strip().split(DELIM) for ln in f if ln.strip()]
     for row in rows[1:]:
         if int(row[0]) == size:
             return {vendor_name(k): float(v) for k, v in zip(rows[0][1:], row[1:])}
-    raise AssertionError(f"bench_results/{driver}_error.csv has no row at {size}")
+    raise AssertionError(f"bench_results/{csv} has no row at {size}")
 
 
 def _error_bound(driver: str, col: str, jax_row: dict) -> float:
@@ -1092,7 +1131,7 @@ def phase_drivers() -> None:
         for row in lines[1:]:
             cells = row.split(";")
             size = int(cells[0])
-            jax_row = _jax_error_row(driver, size) if mode == "error" else {}
+            jax_row = _v5e_row(f"{driver}_error.csv", size) if mode == "error" else {}
             for col, cell in zip(header[1:], cells[1:]):
                 v = float(cell)
                 if mode != "error":
@@ -1109,6 +1148,311 @@ def phase_drivers() -> None:
     bad += [f"the drivers never launched {k}" for k, v in launches.items() if v < 1]
     if bad:
         raise AssertionError("drivers phase failed:\n" + "\n".join(bad))
+
+
+# --------------------------------------------------------------------------
+# phase 7: the TRSM routes side by side
+# --------------------------------------------------------------------------
+
+ROUTE_NS = (4096, 8192, 16384)
+ROUTE_KS = (1, 8, 16, 32, 64, 128)
+# the sweep against its plain version (trsv_plain), column by column, at
+# this point of the timed routes, in every tier
+SWEEP_PLAIN_N, SWEEP_PLAIN_K = 16384, 64
+# the composition at n = 1024 on the JAX tests' operand (the packed LU of a
+# diagonally dominant matrix), held to their bounds (tests/test_trsv.py):
+# f32 arithmetic 5e-5, bf16 storage 1e-3, df64 5e-6
+ROUTE_SMALL_N = 1024
+SMALL_BOUND = {("f32", "f32"): 5e-5, ("bf16", "f32"): 1e-3, ("f32", "df64"): 5e-6}
+# Bounds of the timed routes' errors against the float64 solve of the
+# stored triangle (the LU factor of the TRSV driver's master, upper,
+# non-unit). The reference solves the stored values, so bf16 storage takes
+# the f32 tier's bounds. Each was set from a sound reading at n = 16384 and
+# sits below a fault's (NVIDIA H100 80GB HBM3, 700 W; PERF.md, Findings):
+# - the sweep, f32 tier: the drivers' 1e-4. It reads 6.05e-5; an earlier
+#   f32 order of the kernel (one chain of n/4 adds a lane) read 2.13e-4.
+# - the sweep, df64 tier: 2e-5. It reads 5.51e-6; a df64 route computing in
+#   f32 reads as the f32 sweep, 6.0e-5.
+# - the refined compositions (df64; f32 storage at k < 32, by the JAX
+#   refinement gate): 1.5 x the largest reading, 1.13e-4. The f32
+#   composition unrefined reads 2.13e-4, and at k = 1 with TF32 products
+#   2.33e-4 (scripts/torch_trsm_routes.py).
+# - the unrefined f32-tier composition and xla_trsm: max(1e-4, 4 x the v5e
+#   TRSM CSV's cell of their column), the repo's envelope for a reference's
+#   error (3.4e-4 and 2.2e-4). They read 2.2e-4 and 1.8e-4, the class of
+#   512-row block inverses and of cuBLAS's blocked trsm (ROADMAP C); the
+#   composition with TF32 products reads 1.0e-1 at k = 64.
+# The sweep's plain version (trsv_plain) keeps the JAX kernel's arithmetic,
+# whose df64 tier rounds each 512-term block product in f32: it reads
+# 5.3e-5 in the f32 tier and 5.2e-5 in df64 (the v5e TRSM CSV's df64 cell
+# is 5.6e-5), so it and its gap to the kernel are held to the drivers'
+# TRSV bound and twice it, in both tiers.
+ROUTE_DF64_BOUND = 2e-5
+REFINED_COMPOSITION_BOUND = 1.5 * 1.13e-4
+# The composition's card run against its CPU run on the same operand: the
+# largest gap read at n = 16384, refined (1.77e-4) and unrefined (3.19e-4,
+# on bf16 storage), scaled by n / 16384 (4096 read at most 2.7e-5 and
+# 8.4e-5, 8192 6.1e-5 and 1.49e-4), times GAP_MARGIN.
+CARD_CPU_GAP = {True: 1.77e-4, False: 3.19e-4}
+GAP_MARGIN = 1.5
+
+
+def _rel1_cols(got, ref) -> float:
+    """The largest relative 1-norm gap over the columns of (n, k) results."""
+    got, ref = got.double().reshape(got.shape[0], -1), ref.double().reshape(ref.shape[0], -1)
+    return float(((got - ref).abs().sum(0) / ref.abs().sum(0)).max())
+
+
+def trsm_routes(dev, ns=ROUTE_NS, ks=ROUTE_KS, timed: bool = True) -> list[str]:
+    """The three routes of a TRSM (upper, non-unit) at each n and k: the
+    sweep (resident=False), the blocked composition (resident=True; in df64
+    _trsm_small_df64 called directly) and, for f32 storage in the f32 tier,
+    xla_trsm; for f32 and bf16 storage in the f32 tier, and f32 storage in
+    the df64 tier. Timed, the operand is the LU factor of the TRSV driver's
+    fp64 master (its disk cache) and the bounds are those above; at
+    SWEEP_PLAIN_N and SWEEP_PLAIN_K the sweep is also held against its
+    plain version column by column, within twice the drivers' TRSV bound
+    (the plain version's df64 tier errs in the f32 class). A line per
+    point gives each route's event ms (the minimum of 10), its device
+    records and device ms (torch.profiler), its event and host ms (medians
+    of the same calls) and the route resident=None takes. Untimed, the
+    operand is the JAX tests' and every route is held to their bounds
+    (SMALL_BOUND). The composition is also held against its own run on the
+    CPU on the same operand: timed within CARD_CPU_GAP, untimed within
+    twice its bound. Returns the failures."""
+    import accblas_tpu_torch
+    from accblas_tpu_torch.bench import trsv_benchmark
+    from accblas_tpu_torch.ops import trsv as trsvops
+    from accblas_tpu_torch.utils import devgen
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    bad = []
+    lu64 = trsv_benchmark.lu_cached(max(N_TRSV, *ns), SEED, dev) if timed else None
+    sweep_counted = {"trsv_sweep": lambda: trsvops.sweep_launches,
+                     "leaf_diag": lambda: trsvops.leaf_diag_launches}
+    kmax = max(ks)
+    for n in ns:
+        if timed:
+            a32 = torch.from_numpy(lu64[:n, :n].astype(np.float32)).to(dev)
+            jax_trsm = _v5e_row("trsm_error.csv", n)
+        else:
+            a32 = _packed_lu(n, SEED, dev)[0]
+        storages = {"f32": a32, "bf16": a32.to(torch.bfloat16)}
+        cpu = {st: a.cpu() for st, a in storages.items()}
+        bmax = devgen.gen_f32((n, kmax), SEED, "trsv_b", device=dev)
+        refs = {st: _solve64(a, bmax, "upper", False) for st, a in storages.items()}
+        for k in ks:
+            b = bmax[:, :k].contiguous()
+            line = []
+            for st, ar in (("f32", "f32"), ("bf16", "f32"), ("f32", "df64")):
+                a, ref = storages[st], refs[st][:, :k]
+                if timed:
+                    refined = ar == "df64" or (st == "f32" and k < 32)
+                    bnd = ROUTE_DF64_BOUND if ar == "df64" else TRSV_F32_BOUND
+                    blocked = (REFINED_COMPOSITION_BOUND if refined
+                               else max(TRSV_F32_BOUND, 4 * jax_trsm["TRSM fp32"]))
+                    vendor = max(TRSV_F32_BOUND, 4 * jax_trsm["torch TRSM fp32"])
+                    gap_tol = GAP_MARGIN * CARD_CPU_GAP[refined] * n / N_TRSV
+                else:
+                    bnd = blocked = vendor = SMALL_BOUND[(st, ar)]
+                    gap_tol = 2 * blocked
+                if ar == "df64":
+                    comp = lambda a=a: trsvops._trsm_small_df64(a, b, "upper", False, "f32")
+                    comp_cpu = lambda: trsvops._trsm_small_df64(cpu[st], b.cpu(), "upper",
+                                                                False, "f32")
+                else:
+                    comp = lambda a=a: accblas_tpu_torch.acc_trsm(
+                        a, b, "upper", False, ar="f32", resident=True, unstable_ok=True)
+                    comp_cpu = lambda: trsvops._trsv_small(cpu[st], b.cpu(), "upper", False,
+                                                           "f32")
+                routes = {"sweep": (lambda a=a, ar=ar: accblas_tpu_torch.acc_trsm(
+                    a, b, "upper", False, ar=ar, resident=False, unstable_ok=True), bnd,
+                    sweep_counted),
+                    "composition": (comp, blocked, {})}
+                if st == "f32" and ar == "f32":
+                    routes["xla"] = (lambda a=a: accblas_tpu_torch.xla_trsm(a, b, "upper", False),
+                                     vendor, {})
+                label = f"{st}/{ar}"
+                for name, (fn, tol, _) in routes.items():
+                    x = fn()
+                    err = _rel1(x, ref)
+                    ok = bool(torch.isfinite(x).all()) and err < tol
+                    msg = f"trsm routes n={n} k={k} {label} {name}: err={err:.3e} bound={tol:.1e}"
+                    if name == "composition":
+                        gap = _rel1(x.cpu(), comp_cpu())
+                        ok = ok and gap < gap_tol
+                        msg += f" card_vs_cpu={gap:.3e} bound={gap_tol:.1e}"
+                    if name == "sweep" and timed and (n, k) == (SWEEP_PLAIN_N, SWEEP_PLAIN_K):
+                        xp = trsv_plain(a, b, "upper", False, ar, x.dtype)
+                        p_err, kp = _rel1(xp, ref), _rel1_cols(x, xp)
+                        ok = ok and p_err < TRSV_F32_BOUND and kp < 2 * TRSV_F32_BOUND
+                        msg += (f" plain_err={p_err:.3e} bound={TRSV_F32_BOUND:.1e} "
+                                f"kernel_vs_plain_by_column={kp:.3e} "
+                                f"bound={2 * TRSV_F32_BOUND:.1e}")
+                    log(("ok   " if ok else "FAIL ") + msg)
+                    if not ok:
+                        bad.append(msg)
+                    del x
+                if not timed:
+                    continue
+                cells = []
+                for name, (fn, _, counted) in routes.items():
+                    ms = benchmark_function(fn)
+                    ev, host = paired_ms(fn)
+                    _, dev_ms, records = profile_calls(f"route {label} {name}", fn, counted,
+                                                       calls=3, top=0)
+                    cells.append(f"{name} {ms:.4f} ms {records:g} records device {dev_ms:.4f} "
+                                 f"median event {ev:.4f} host {host:.4f}")
+                auto = trsvops._route(n, k, st, ar, "cuda")
+                line.append(f"{label}: " + "; ".join(cells) + f"; resident=None: {auto}")
+            for entry in line:
+                log(f"route n={n} k={k} {entry}")
+        del storages, cpu, refs, bmax, a32
+        torch.cuda.empty_cache()
+    return bad
+
+
+def phase_trsm_routes() -> None:
+    """The routes at the smoke sizes, timed, then the composition at the
+    small size, checked only."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    bad = trsm_routes(dev)
+    bad += trsm_routes(dev, ns=(ROUTE_SMALL_N,), timed=False)
+    log(f"trsm routes: {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("trsm routes failed:\n" + "\n".join(bad))
+
+
+# --------------------------------------------------------------------------
+# phase 8: the solvers
+# --------------------------------------------------------------------------
+
+def cg_split(a, b, ar: str, iters_lo: int, iters_hi: int) -> dict:
+    """One CG iteration's time, as the slope between `iters_lo` and
+    `iters_hi` iterations: event and host ms (medians of the same calls,
+    paired_ms; the loop reads nothing back, so the host ms is the time to
+    enqueue), device busy ms and device records (torch.profiler)."""
+    from accblas_tpu_torch.models import solvers
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+
+    counted = {"dot_partials": lambda: dotops.launches, "dot_finish": lambda: dotops.launches,
+               "gemv_rows": lambda: gemvops.launches}
+    out = {}
+    for it in (iters_lo, iters_hi):
+        fn = lambda it=it: solvers.cg(a, b, iters=it, ar=ar)  # noqa: E731
+        ev, host = paired_ms(fn)
+        _, dev_ms, records = profile_calls(f"cg {it} iterations", fn, counted, calls=3, top=0)
+        out[it] = (ev, host, dev_ms, records)
+    d = iters_hi - iters_lo
+    ev, host, dev_ms, records = ((out[iters_hi][i] - out[iters_lo][i]) / d for i in range(4))
+    return {"event_ms": ev, "host_ms": host, "device_ms": dev_ms, "records": records}
+
+
+def solvers_checks(dev) -> list[str]:
+    """For each of the solver driver's four variants, on its system at its
+    n and budget: the matvec and a dot of the CG loop through the kernels
+    against the plain versions and float64, to the tier bounds (_gemv_case,
+    _dot_case: the f32 and df64-fast GEMV, the f32 and df64-precise DOT);
+    then CG through the kernels against CG with the plain versions injected
+    (matvec=, dot=) on the same tensors, for f32 storage, x within the f32
+    tier's bound (the CG state is f32) and the same iteration count. On bf16
+    storage CG rounds p to bf16 in every matvec, so two correct summation
+    orders flip roundings and their x part by 3.3-4.3e-4 (NVIDIA H100 80GB
+    HBM3, 700 W; PERF.md, Findings): that gap is logged, and the variant is
+    held through its matvec, its dot and the driver's resid."""
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+    from accblas_tpu_torch.models import solvers
+    from accblas_tpu_torch.ops import _build
+    from accblas_tpu_torch.ops import df64 as dfm
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.utils import tolerance
+
+    chk = Checks()
+    n, iters = sb.DEFAULT_SIZE, sb.ITERS_HI
+    a32, b = sb.spd_system(n, SEED, dev)
+    res = torch.empty(n, device=dev)
+    tol = tolerance.TOL["f32"]
+    for name in sb.NAMES:
+        st, ar = name.split()[1].split("/")
+        a = a32 if st == "f32" else a32.to(torch.bfloat16)
+        _gemv_case(chk, f"{name} matvec", a, b.to(a.dtype), res, 1.0, 0.0, ar)
+        _dot_case(chk, f"{name} dot", b, solvers._matvec(a, b, ar), ar, precise=ar == "df64")
+        gtier, dtier = _build.tier(ar, False, "gemv"), _build.tier(ar, ar == "df64", "dot")
+        xk, _, itk = solvers.cg(a, b, iters=iters, ar=ar)
+        xp, _, itp = solvers.cg(
+            a, b, iters=iters,
+            matvec=lambda p, a=a, gtier=gtier: gemvops._gemv_plain(
+                a, p.to(a.dtype), res, 1.0, 0.0, gtier, False),
+            dot=lambda u, v, dtier=dtier: dfm.df_to_f32(dfm.DF(*dotops._dot_plain(u, v, dtier,
+                                                                                  0.0))))
+        gap = float((xk.double() - xp.double()).norm() / xp.double().norm())
+        msg = (f"{name} n={n}, {iters} iterations, kernels against the plain versions "
+               f"injected: |x_k - x_p| / |x_p| = {gap:.3e}, iterations {int(itk)} and "
+               f"{int(itp)}")
+        if st == "bf16":
+            log(f"info {msg} (not bounded: bf16 rounding of p)")
+            continue
+        chk.record(gap <= tol and int(itk) == int(itp) == iters, f"{msg} bound={tol:.1e}")
+    return chk.failures
+
+
+def phase_solvers() -> None:
+    """The solver driver at its default size (n = 8192, full width: A takes
+    256 MiB in f32), its CSV printed; every it_per_s finite and positive,
+    every resid within 4 x the v5e cell at the same size
+    (bench_results/solvers.csv), the DOT and GEMV kernels launched in the
+    driver's run; the kernels against the plain versions at the driver's
+    shapes (solvers_checks); one CG iteration split into host and device
+    time."""
+    import contextlib
+    import io
+
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+
+    dev = torch.device("cuda", 0)
+    bad = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dotops.launches = gemvops.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        sb.main(["--sweep", "single"])
+    torch.cuda.synchronize()
+    launches = {"dot": dotops.launches, "gemv": gemvops.launches}
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"csv solvers speed: {line}")
+    log(f"driver solvers: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    bad += [f"the solver driver never launched {k}" for k, v in launches.items() if v < 1]
+    header = lines[0].split(";")
+    for row in lines[1:]:
+        cells = row.split(";")
+        size = int(cells[0])
+        v5e = _v5e_row("solvers.csv", size)
+        for col, cell in zip(header[1:], cells[1:]):
+            v = float(cell)
+            if col.endswith("it_per_s"):
+                ok, what = math.isfinite(v) and v > 0, "not finite and positive"
+            else:
+                b = 4 * v5e[col]
+                ok, what = v <= b, f"above 4 x the v5e cell, {b:.3e}"
+            if not ok:
+                bad.append(f"solvers {col} at {size}: {cell} ({what})")
+    bad += solvers_checks(dev)
+    a, b = sb.spd_system(sb.DEFAULT_SIZE, SEED, dev)
+    for label, op, ar in (("f32/f32", a, "f32"), ("bf16/df64", a.to(torch.bfloat16), "df64")):
+        sp = cg_split(op, b, ar, sb.ITERS_LO, sb.ITERS_HI)
+        log(f"split cg {label} n={sb.DEFAULT_SIZE}, one iteration: median event ms "
+            f"{sp['event_ms']:.4f} | median host ms {sp['host_ms']:.4f} | device ms "
+            f"{sp['device_ms']:.4f} | {sp['records']:g} device records")
+    log(f"solvers phase: {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("solvers phase failed:\n" + "\n".join(bad))
 
 
 def _run(name: str, phase):
@@ -1132,6 +1476,8 @@ def main() -> int:
     kernels = _run("dot/gemv main path", phase_main)
     kernels += _run("trsv main path", phase_main_trsv)
     _run("drivers", phase_drivers)
+    _run("trsm routes", phase_trsm_routes)
+    _run("solvers", phase_solvers)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

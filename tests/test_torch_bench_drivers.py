@@ -1,9 +1,9 @@
 """The port's benchmark drivers (accblas_tpu_torch.bench) with --device cpu at
 small sizes, mirroring tests/test_bench_drivers.py and
-tests/test_utils_harness.py (the solver drivers are not ported yet): the
-CSV header is the JAX driver's but for the vendor columns' names, the error
-cells sit within the JAX driver tests' bounds, speed mode names its host
-clock, and without a card the drivers refuse --device cuda."""
+tests/test_utils_harness.py, and the solver driver: the CSV header is the
+JAX driver's but for the vendor columns' names, the error cells sit within
+the JAX driver tests' bounds, speed mode names its host clock, and without
+a card the drivers refuse --device cuda."""
 
 import sys
 from pathlib import Path
@@ -15,7 +15,8 @@ import torch
 from accblas_tpu.bench import common as jcommon
 from accblas_tpu.bench import dot_benchmark as jdot
 from accblas_tpu.bench import gemv_benchmark as jgemv
-from accblas_tpu_torch.bench import common, dot_benchmark, gemv_benchmark, plot, trsv_benchmark
+from accblas_tpu_torch.bench import (common, dot_benchmark, gemv_benchmark, plot,
+                                     solvers_benchmark, trsv_benchmark)
 from accblas_tpu_torch.utils import bench
 
 torch.set_num_threads(1)
@@ -153,7 +154,8 @@ def test_dot_driver_no_align_ragged(capsys):
     assert vals["DOT df64 oracle (device)"] < 1e-10
 
 
-@pytest.mark.parametrize("module", [dot_benchmark, gemv_benchmark, trsv_benchmark])
+@pytest.mark.parametrize("module", [dot_benchmark, gemv_benchmark, trsv_benchmark,
+                                    solvers_benchmark])
 def test_drivers_refuse_cuda_without_a_card(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a CUDA device")
@@ -243,3 +245,35 @@ def test_drivers_run_as_modules(tmp_path):
         cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines()[0] == ";".join(_jax_header("gemv_error.csv"))
+
+
+def test_solvers_driver_cpu(capsys, monkeypatch):
+    """The solver driver at its smallest size on the CPU: the JAX driver's
+    header, finite positive rates, residuals in the v5e CSV's class (f32
+    storage at the f32 floor, bf16 storage at its own), and the richardson
+    and power-method lines on stderr. The iteration budgets are cut from
+    20/120 to 2/6 to keep the host-clock timing short."""
+    monkeypatch.setattr(solvers_benchmark, "ITERS_LO", 2)
+    monkeypatch.setattr(solvers_benchmark, "ITERS_HI", 6)
+    header, rows, err = _run_main(solvers_benchmark, ["--size", "512", "--sweep", "single"],
+                                  capsys)
+    assert header == _jax_header("solvers.csv")
+    assert len(rows) == 1 and rows[0][0] == "512"
+    vals = _vals(header, rows[0])
+    assert all(np.isfinite(v) for v in vals.values())
+    assert all(v > 0 for k, v in vals.items() if k.endswith("it_per_s"))
+    # 6 iterations stop well short of convergence: the residual is below 1
+    assert all(0 < v < 1 for k, v in vals.items() if k.endswith("resid"))
+    assert "host clock" in err and "richardson" in err and "power_method" in err
+
+
+def test_solvers_driver_residual_at_the_budget(capsys):
+    """At the full 120-iteration budget the f32/f32 CG lands at the v5e
+    CSV's residual class (3.7e-6 at n = 512): the df64 residual of one
+    solve, no timing."""
+    from accblas_tpu_torch.models import solvers
+
+    a, b = solvers_benchmark.spd_system(512, solvers_benchmark.SEED, "cpu")
+    x = solvers.cg(a, b, iters=solvers_benchmark.ITERS_HI)[0]
+    r = solvers_benchmark.df64_residual(a, b, x)
+    assert 1e-7 < r < 4 * 3.7084581168634872e-06, r

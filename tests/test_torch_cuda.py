@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import accblas_tpu_torch
+from accblas_tpu_torch.ops import _build
 from accblas_tpu_torch.ops import df64 as tdf
 from accblas_tpu_torch.ops import dot as tdot
 from accblas_tpu_torch.ops import gemv as tgemv
@@ -628,3 +629,72 @@ def test_trsv_f32_sweep_error_in_the_plain_class(cuda):
             err = relative_error(got[:, q].double().numpy(), ref)
             perr = relative_error(plain[:, q].double().numpy(), ref)
             assert err <= 1.5 * perr, (k, err, perr)
+
+
+# ---- the blocked compositions, their route, and the solvers ----
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("n", [1024, 1664])
+def test_composition_on_card_against_its_cpu_run(cuda, n, k, ar):
+    """The composition on the card (cuBLAS products in genuine f32) against
+    its own run on the CPU on the same operand, and both against float64:
+    each within the tier's bound (f32 1e-4, df64 5e-6), the two within
+    twice it."""
+    lu, _ = _packed_lu(n, 42, cuda)
+    bm = devgen.gen_f32((n, k), 7, "trsv_b", device=cuda)
+    small = ttrsv._trsm_small_df64 if ar == "df64" else ttrsv._trsv_small
+    got = small(lu, bm, "upper", False, "f32")
+    cpu = small(lu.cpu(), bm.cpu(), "upper", False, "f32")
+    ref = _solve64(lu, bm, "upper", False)
+    tol = _trsv_tol(ar, "f32")
+    assert torch.isfinite(got).all()
+    assert _rel1(got, ref) < tol and _rel1(cpu, ref.cpu()) < tol
+    assert _rel1(got.cpu(), cpu) < 2 * tol
+
+
+@pytest.mark.parametrize("n,k,st,ar", [(16384, 64, "f32", "f32"), (16384, 16, "f32", "f32"),
+                                       (4096, 128, "bf16", "f32"), (2048, 64, "f32", "df64")])
+def test_resident_none_takes_the_gate_route(cuda, n, k, st, ar):
+    """On a CUDA tensor resident=None takes _route's choice: the sweep's two
+    kernels launch exactly when the gate says sweep, and the result equals
+    the forced route's bit for bit."""
+    a = devgen.gen_f32((n, n), 5, "trsv_a", device=cuda).mul_(1.0 / n).to(STORAGE[st])
+    bm = devgen.gen_f32((n, k), 5, "trsv_b", device=cuda)
+    route = ttrsv._route(n, k, st, ar, "cuda")
+    before = ttrsv.sweep_launches
+    got = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar=ar, unstable_ok=True)
+    assert (ttrsv.sweep_launches - before == 1) == (route == "sweep")
+    if route == "sweep":
+        forced = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar=ar, resident=False,
+                                            unstable_ok=True)
+    else:
+        forced = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar=ar, resident=True,
+                                            unstable_ok=True)
+    assert torch.equal(got, forced)
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+def test_cg_kernels_against_plain_injected(cuda, ar):
+    """CG through the DOT and GEMV kernels against CG with their plain
+    versions injected (matvec=, dot=) on the same CUDA tensors: x within the
+    f32 tier's bound, the same iteration count, and both kernels launched."""
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+    from accblas_tpu_torch.models import solvers
+
+    n, iters = 1024, 120
+    a, b = sb.spd_system(n, 42, cuda)
+    res = torch.empty(n, device=cuda)
+    tier = _build.tier(ar, ar == "df64", "dot")
+    before = (tdot.launches, tgemv.launches)
+    xk, _, itk = solvers.cg(a, b, iters=iters, ar=ar)
+    assert tdot.launches > before[0] and tgemv.launches > before[1]
+    gtier = _build.tier(ar, False, "gemv")
+    xp, _, itp = solvers.cg(
+        a, b, iters=iters,
+        matvec=lambda p: tgemv._gemv_plain(a, p, res, 1.0, 0.0, gtier, False),
+        dot=lambda u, v: tdf.df_to_f32(tdf.DF(*tdot._dot_plain(u, v, tier, 0.0))))
+    assert int(itk) == int(itp) == iters
+    gap = float((xk.double() - xp.double()).norm() / xp.double().norm())
+    assert gap <= tolerance.TOL["f32"], gap
+    assert sb.df64_residual(a, b, xk) < 4 * 3.5373781116606202e-06

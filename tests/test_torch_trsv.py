@@ -207,14 +207,18 @@ def test_bf16_envelope_warns():
 
 
 def test_resident_true_raises():
+    """resident=True solves in the f32 tier (the blocked composition, the
+    JAX package's resident mode) and still raises in df64, as there."""
     lu, b64 = _packed_lu(256, seed=81)
     a = torch.from_numpy(lu.astype(np.float32))
     b = torch.from_numpy(b64.astype(np.float32))
-    for call in (lambda: accblas_tpu_torch.trsv(a, b, resident=True),
-                 lambda: accblas_tpu_torch.acc_trsv(a, b, ar="f32", resident=True),
-                 lambda: accblas_tpu_torch.trsm(a, b.reshape(-1, 1), resident=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    ref = _ref(lu.astype(np.float32).astype(np.float64), b.double().numpy(), "upper", True)
+    want = jtrsv.trsv(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), resident=True)
+    for x in (accblas_tpu_torch.trsv(a, b, resident=True),
+              accblas_tpu_torch.acc_trsv(a, b, ar="f32", resident=True),
+              accblas_tpu_torch.trsm(a, b.reshape(-1, 1), resident=True).reshape(-1)):
+        assert x.shape == (256,) and x.dtype == torch.float32
+        _check(x, want, ref, 1e-4)
     with pytest.raises(ValueError, match="resident=True unsupported"):
         accblas_tpu_torch.acc_trsv(a, b, ar="df64", resident=True)
     with pytest.raises(ValueError, match="resident=True unsupported"):
