@@ -3,6 +3,7 @@
 an SPD system at every (storage x dot-arithmetic) pairing.
 
     python -m accblas_tpu_torch.bench.solvers_benchmark [--size N] [--sweep single] [--device cpu]
+    python -m accblas_tpu_torch.bench.solvers_benchmark --pcg [--iters N] [--ranks R] [--size N]
 
 For each size it reports, per variant (f32/f32, f32/df64, bf16/f32,
 bf16/df64: storage of A / arithmetic of the matvec and the dots):
@@ -66,11 +67,72 @@ def df64_residual(a32, b, x) -> float:
     return float(np.linalg.norm(r) / np.linalg.norm(b64))
 
 
+PCG_HEADER = ["n", "variant", "pcg resid", "cg resid"]
+
+
+def _pcg_rank(n: int, iters: int, device) -> list[str]:
+    """Every rank: the four variants' sharded CG (``parallel.pcg`` on this
+    rank's blocks) and single-card CG on the whole system, each residual by
+    ``df64_residual``; rank 0 prints each row as it is measured. Returns
+    the rows."""
+    from ..models import solvers
+    from ..parallel import collectives, pcg
+    from ..parallel.mesh import make_mesh, shard, unshard
+
+    mesh = make_mesh(device=device)
+    a32, b = spd_system(n, SEED, mesh.device)
+    if collectives.rank() == 0:
+        common.progress(f"pcg mesh: {mesh.shape}, transport {mesh.transport}")
+    rows = []
+    for name in NAMES:
+        st, ar = name.split()[1].split("/")
+        a = a32 if st == "f32" else a32.to(torch.bfloat16)
+        xp, _, itp = pcg(shard(a, mesh, ("rows", "cols")), shard(b, mesh, ("cols",)),
+                         mesh=mesh, iters=iters, ar=ar)
+        xp = unshard(xp, mesh, ("cols",), (n,))
+        xs, _, its = solvers.cg(a, b, iters=iters, ar=ar)
+        rp, rs = df64_residual(a32, b, xp), df64_residual(a32, b, xs)
+        row = common.DELIM.join([str(n), f"{st}/{ar}", common.fmt(rp), common.fmt(rs)])
+        rows.append(row)
+        if collectives.rank() == 0:
+            common.progress(f"pcg {st}/{ar}: resid {rp:.3e} (single-card {rs:.3e}) after "
+                            f"{int(itp)}/{int(its)} iters")
+            print(row, flush=True)
+    return rows
+
+
+def pcg_table(n: int, iters: int, ranks: int, device) -> list[str]:
+    """The --pcg table on `ranks` ranks: the header, then rank 0's rows as
+    they come. Returns the rows. A fault in any rank fails the table (the
+    ranks' collectives cannot go on past it)."""
+    from ..parallel import launch
+
+    print(common.DELIM.join(PCG_HEADER), flush=True)
+    dev = torch.device(device)
+    return launch.run(_pcg_rank, ranks, n, iters, None if dev.type == "cuda" else dev,
+                      device=dev)[0]
+
+
 def main(argv=None):
-    args = common.parse_args("solvers_benchmark", DEFAULT_SIZE, MIN_SIZE, argv=argv)
+    def extra(p):
+        p.add_argument("--pcg", action="store_true",
+                       help="mesh-sharded CG convergence table (pcg beside single-card cg "
+                       "per variant) instead of the it/s table")
+        p.add_argument("--iters", type=int, default=ITERS_HI,
+                       help="fixed iteration budget for --pcg")
+        p.add_argument("--ranks", type=int, default=0,
+                       help="ranks of --pcg (default: the number of cards, or 4 with "
+                       "--device cpu)")
+
+    args = common.parse_args("solvers_benchmark", DEFAULT_SIZE, MIN_SIZE, extra=extra,
+                             argv=argv)
     from ..models import solvers
 
     dev = args.device
+    if args.pcg:
+        ranks = args.ranks or (torch.cuda.device_count() if dev.type == "cuda" else 4)
+        pcg_table(args.size, args.iters, ranks, dev)
+        return
     sizes = common.sweep_sizes(args, MIN_SIZE, 256, dense_step=2048)
     common.emit_header("n", [f"{name} {col}" for name in NAMES for col in ("it_per_s", "resid")])
     timer = common.timer(dev)

@@ -63,7 +63,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      every it_per_s finite and positive, every resid within 4 x the v5e
      cell, the DOT and GEMV kernels launched), CG through the kernels
      against CG with the plain versions injected at n = 1024, and one CG
-     iteration split into event, device and host time ("split cg" lines).
+     iteration split into event, device and host time ("split cg" lines);
+  9. sharded (accblas_tpu_torch.parallel): (a) a 1 x 1 mesh over NCCL in
+     this process at the main path's widths (pdot 2^29 and df64 2^27,
+     pgemv 16384^2, ptrsv and ptrsm at 16384, pcg at 8192 for 120
+     iterations), each op bit for bit equal to its single-card op, the
+     DOT, GEMV, leaf gather and sweep kernels launched by the sharded path,
+     and the layer's overhead a call and a pcg iteration; (b) 4 ranks
+     sharing the card over gloo with host-staged collectives: the port's
+     dryrun_multichip, then each op at full width on the 2 x 2 mesh held to
+     the JAX tests' bounds and against the single-card op ("sharded 2x2"
+     lines); (c) the solver driver's --pcg table over the 4 ranks, each pcg
+     resid within 4 x the single-card cg resid.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A CUDA fault fails the run naming the phase;
 in a TRSV phase that includes the sweep's bounded spin-wait, which traps
@@ -1328,12 +1339,12 @@ def phase_trsm_routes() -> None:
 # phase 8: the solvers
 # --------------------------------------------------------------------------
 
-def cg_split(a, b, ar: str, iters_lo: int, iters_hi: int) -> dict:
-    """One CG iteration's time, as the slope between `iters_lo` and
-    `iters_hi` iterations: event and host ms (medians of the same calls,
-    paired_ms; the loop reads nothing back, so the host ms is the time to
-    enqueue), device busy ms and device records (torch.profiler)."""
-    from accblas_tpu_torch.models import solvers
+def cg_split(run, iters_lo: int, iters_hi: int, label: str = "cg") -> dict:
+    """One iteration's time of a CG solve `run(iters)`, as the slope between
+    `iters_lo` and `iters_hi` iterations: event and host ms (medians of the
+    same calls, paired_ms; the loop reads nothing back, so the host ms is
+    the time to enqueue), device busy ms and device records
+    (torch.profiler)."""
     from accblas_tpu_torch.ops import dot as dotops
     from accblas_tpu_torch.ops import gemv as gemvops
 
@@ -1341,9 +1352,10 @@ def cg_split(a, b, ar: str, iters_lo: int, iters_hi: int) -> dict:
                "gemv_rows": lambda: gemvops.launches}
     out = {}
     for it in (iters_lo, iters_hi):
-        fn = lambda it=it: solvers.cg(a, b, iters=it, ar=ar)  # noqa: E731
+        fn = lambda it=it: run(it)  # noqa: E731
         ev, host = paired_ms(fn)
-        _, dev_ms, records = profile_calls(f"cg {it} iterations", fn, counted, calls=3, top=0)
+        _, dev_ms, records = profile_calls(f"{label} {it} iterations", fn, counted, calls=3,
+                                           top=0)
         out[it] = (ev, host, dev_ms, records)
     d = iters_hi - iters_lo
     ev, host, dev_ms, records = ((out[iters_hi][i] - out[iters_lo][i]) / d for i in range(4))
@@ -1444,15 +1456,394 @@ def phase_solvers() -> None:
             if not ok:
                 bad.append(f"solvers {col} at {size}: {cell} ({what})")
     bad += solvers_checks(dev)
+    from accblas_tpu_torch.models import solvers
+
     a, b = sb.spd_system(sb.DEFAULT_SIZE, SEED, dev)
     for label, op, ar in (("f32/f32", a, "f32"), ("bf16/df64", a.to(torch.bfloat16), "df64")):
-        sp = cg_split(op, b, ar, sb.ITERS_LO, sb.ITERS_HI)
+        sp = cg_split(lambda it, op=op, ar=ar: solvers.cg(op, b, iters=it, ar=ar), sb.ITERS_LO,
+                      sb.ITERS_HI)
         log(f"split cg {label} n={sb.DEFAULT_SIZE}, one iteration: median event ms "
             f"{sp['event_ms']:.4f} | median host ms {sp['host_ms']:.4f} | device ms "
             f"{sp['device_ms']:.4f} | {sp['records']:g} device records")
     log(f"solvers phase: {time.perf_counter() - t0:.1f} s")
     if bad:
         raise AssertionError("solvers phase failed:\n" + "\n".join(bad))
+
+
+# --------------------------------------------------------------------------
+# phase 9: the sharded layer
+# --------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+N_PDOT_DF64 = 2**27
+N_PCG, PCG_ITERS = 8192, 120
+K_PTRSM = 64
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def _bits_equal(a, b) -> bool:
+    """Tensors, or tuples of them (a DF, pcg's result), equal bit for bit."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_bits_equal(u, v) for u, v in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _main_operands(dev):
+    """The main path's full-width inputs (phases 4 and 8)."""
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+    from accblas_tpu_torch.utils import devgen
+
+    bf = torch.bfloat16
+    ops = {
+        "xb": devgen.gen_f32((N_DOT,), SEED, "dot_x", device=dev).to(bf),
+        "yb": devgen.gen_f32((N_DOT,), SEED, "dot_y", device=dev).to(bf),
+        "x27": devgen.gen_f32((N_PDOT_DF64,), SEED, "dot_x", device=dev),
+        "y27": devgen.gen_f32((N_PDOT_DF64,), SEED, "dot_y", device=dev),
+        "ab": devgen.gen_f32((N_GEMV, N_GEMV), SEED, "gemv_a", device=dev).to(bf),
+        "xg": devgen.gen_f32((N_GEMV,), SEED, "gemv_x", device=dev).to(bf),
+        "rg": devgen.gen_f32((N_GEMV,), SEED, "gemv_res", device=dev),
+        # bench.py's TRSV operand: unit upper, uniform(-1, 1)/n, b = ones
+        "at": devgen.gen_f32((N_TRSV, N_TRSV), SEED, "trsv_a", device=dev).mul_(1.0 / N_TRSV),
+        "bt": torch.ones(N_TRSV, device=dev),
+        "bm": devgen.gen_f32((N_TRSV, K_PTRSM), SEED, "trsv_b", device=dev),
+    }
+    ops["acg"], ops["bcg"] = sb.spd_system(N_PCG, SEED, dev)
+    return ops
+
+
+def sharded_one_rank() -> list[str]:
+    """(a) a 1 x 1 mesh over NCCL in this process, at the main path's full
+    widths: each sharded op against its single-card op bit for bit (a sum
+    of one term, and a df_sum of one pair, is the identity), the kernels of
+    the path launched, and the layer's overhead per call (CUDA events, 1
+    warm-up, 10 reps, minimum) and per pcg iteration (event, host and device
+    ms, cg_split)."""
+    import tempfile
+
+    from accblas_tpu_torch import acc_dot, acc_gemv, acc_trsm, acc_trsv
+    from accblas_tpu_torch.models import solvers
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.ops import trsv as trsvops
+    from accblas_tpu_torch.parallel import collectives, make_mesh, pcg, pdot, pgemv, ptrsm, ptrsv
+    from accblas_tpu_torch.parallel import shard
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    dev = torch.device("cuda", 0)
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as store:
+        collectives.init(0, 1, store, "nccl")
+        try:
+            mesh = make_mesh()
+            o = _main_operands(dev)
+            ab_s, xg_s, rg_s = (shard(o["ab"], mesh, ("rows", "cols")),
+                                shard(o["xg"], mesh, ("cols",)), shard(o["rg"], mesh, ("rows",)))
+            at_s = shard(o["at"], mesh, ("rows", None), identity_tail=True)
+            acg_s, bcg_s = shard(o["acg"], mesh, ("rows", "cols")), shard(o["bcg"], mesh, ("cols",))
+            pairs = [
+                ("pdot Acc<f32,bf16> n=2^29",
+                 lambda: pdot(o["xb"], o["yb"], mesh, ar="f32"),
+                 lambda: acc_dot(o["xb"], o["yb"], ar="f32")),
+                ("pdot Acc<df64,f32> precise n=2^27",
+                 lambda: pdot(o["x27"], o["y27"], mesh, ar="df64", precise=True),
+                 lambda: acc_dot(o["x27"], o["y27"], ar="df64", precise=True)),
+                (f"pgemv Acc<f32,bf16> {N_GEMV}^2 beta=0",
+                 lambda: pgemv(ab_s, xg_s, rg_s, 1.0, 0.0, ar="f32", mesh=mesh),
+                 lambda: acc_gemv(o["ab"], o["xg"], o["rg"], 1.0, 0.0, ar="f32")),
+                (f"pgemv Acc<df64,bf16> {N_GEMV}^2 beta=0",
+                 lambda: pgemv(ab_s, xg_s, rg_s, 1.0, 0.0, ar="df64", mesh=mesh),
+                 lambda: acc_gemv(o["ab"], o["xg"], o["rg"], 1.0, 0.0, ar="df64")),
+                (f"ptrsv f32 n={N_TRSV} upper unit",
+                 lambda: ptrsv(at_s, o["bt"], "upper", True, "f32", mesh=mesh),
+                 lambda: acc_trsv(o["at"], o["bt"], "upper", True, ar="f32")),
+                (f"ptrsm f32 n={N_TRSV} k={K_PTRSM} upper unit",
+                 lambda: ptrsm(o["at"], o["bm"], "upper", True, "f32", mesh=mesh),
+                 lambda: acc_trsm(o["at"], o["bm"], "upper", True, ar="f32")),
+            ]
+            for ar in ("f32", "df64"):
+                pairs.append((f"pcg f32/{ar} n={N_PCG} {PCG_ITERS} iterations",
+                              lambda ar=ar: pcg(acg_s, bcg_s, mesh=mesh, iters=PCG_ITERS, ar=ar),
+                              lambda ar=ar: solvers.cg(o["acg"], o["bcg"], iters=PCG_ITERS,
+                                                       ar=ar)))
+            torch.cuda.synchronize()
+
+            # ---- the sharded path, its launches counted ----
+            dotops.launches = gemvops.launches = 0
+            trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
+            collectives.counts.clear()
+            got = [sharded() for _, sharded, _ in pairs]
+            torch.cuda.synchronize()
+            launches = {"dot": dotops.launches, "gemv": gemvops.launches,
+                        "trsv_leaf_diag": trsvops.leaf_diag_launches,
+                        "trsv_sweep": trsvops.sweep_launches}
+            log(f"sharded 1x1 nccl launches: {launches}; collectives "
+                f"{ {'/'.join(k): v for k, v in sorted(collectives.counts.items())} }")
+            bad += [f"the sharded path never launched {k}" for k, v in launches.items() if v < 1]
+
+            # ---- each against its single-card op, bit for bit ----
+            for (label, sharded, single), g in zip(pairs, got):
+                want = single()
+                same = _bits_equal(g, want)
+                log(f"sharded 1x1 {label}: bit-equal to the single-card op: {same}")
+                if not same:
+                    bad.append(f"sharded 1x1 {label} differs from its single-card op")
+            del got
+
+            # ---- the layer's overhead ----
+            for label, sharded, single in pairs:
+                if label.startswith("pcg"):
+                    continue
+                ms, ms1 = benchmark_function(sharded), benchmark_function(single)
+                log(f"time sharded 1x1 {label}: {ms:.4f} ms, single-card {ms1:.4f} ms, "
+                    f"overhead {ms - ms1:+.4f} ms per call")
+            for ar in ("f32", "df64"):
+                sp = cg_split(lambda it, ar=ar: pcg(acg_s, bcg_s, mesh=mesh, iters=it, ar=ar),
+                              20, PCG_ITERS, "pcg")
+                sc = cg_split(lambda it, ar=ar: solvers.cg(o["acg"], o["bcg"], iters=it, ar=ar),
+                              20, PCG_ITERS)
+                log(f"split pcg f32/{ar} n={N_PCG}, one iteration 1x1: median event ms "
+                    f"{sp['event_ms']:.4f} | median host ms {sp['host_ms']:.4f} | device ms "
+                    f"{sp['device_ms']:.4f} | {sp['records']:g} device records; single-card cg "
+                    f"{sc['event_ms']:.4f} | {sc['host_ms']:.4f} | {sc['device_ms']:.4f} | "
+                    f"{sc['records']:g}; overhead {sp['event_ms'] - sc['event_ms']:+.4f} ms "
+                    f"per iteration")
+            del o, pairs, ab_s, xg_s, rg_s, at_s, acg_s, bcg_s
+        finally:
+            collectives.shutdown()
+    torch.cuda.empty_cache()
+    return bad
+
+
+def _cancel_inputs(cols: int, n: int = 8192):
+    """tests/test_parallel.py's cancellation DOT with one sign block per
+    cols shard: partials of +-n/(32 cols) that cancel across the ranks."""
+    rng = np.random.default_rng(7)
+    base = np.repeat([1.0, -1.0] * (cols // 2), n // cols) / 32.0
+    return (base + rng.uniform(-1.0, 1.0, n) * 1e-2).astype(np.float32)
+
+
+def _cancel_gemv(cols: int, m: int = 64, n: int = 8192):
+    rng = np.random.default_rng(11)
+    base = np.repeat([1.0, -1.0] * (cols // 2), n // cols)[None, :] / 32.0
+    return (base + rng.uniform(-1.0, 1.0, (m, n)) * 1e-3).astype(np.float32)
+
+
+def sharded_rank_checks() -> dict:
+    """(b), run by each rank of a launch (here 4 ranks sharing cuda:0 over
+    gloo; scripts/torch_sharded_cards.py runs it one rank a card): the
+    port's dryrun, then every sharded op at full width on the 2-D mesh,
+    gathered to every rank; rank 0 holds each result to the JAX tests'
+    bound against float64 on the stored values and against the single-card
+    op on its card, and times the calls. Returns {"lines", "bad"} (rank
+    0's; the others' are empty)."""
+    from accblas_tpu_torch import acc_dot, acc_gemv, acc_trsm, acc_trsv
+    from accblas_tpu_torch.models import solvers
+    from accblas_tpu_torch.parallel import collectives, dryrun, make_mesh, pcg, pdot, pgemv
+    from accblas_tpu_torch.parallel import ptrsm, ptrsv, shard, unshard
+    from accblas_tpu_torch.utils import interop, tolerance
+
+    lead = collectives.rank() == 0
+    lines, bad = [], []
+
+    def note(ok: bool, line: str):
+        if lead:
+            lines.append(f"sharded {tag} {line}: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                bad.append(line)
+
+    def timed(fn):
+        """fn's result and its host ms (3 calls, each synchronised, min)."""
+        best, out = float("inf"), None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return out, best
+
+    t0 = time.perf_counter()
+    line = dryrun.dryrun_rank()
+    if lead:
+        lines.append(f"{line} ({time.perf_counter() - t0:.1f} s)")
+    mesh = make_mesh()
+    dev, cols = mesh.device, mesh.cols
+    tag = f"{mesh.rows}x{mesh.cols}"
+    ms, ms1 = {}, {}  # host ms a call: the sharded op, and rank 0's single-card op
+
+    # pdot df64 precise on the cancellation construction, a sign block per shard
+    x = _cancel_inputs(cols)
+    xt = interop.from_numpy(x, device=dev)
+    ones = torch.ones_like(xt)
+    got, ms["pdot df64 cancel"] = timed(lambda: pdot(shard(xt, mesh, ("cols",)),
+                                                     shard(ones, mesh, ("cols",)), mesh,
+                                                     ar="df64", precise=True))
+    if lead:
+        ref = math.fsum(x.astype(np.float64))
+        single, ms1["pdot df64 cancel"] = timed(lambda: acc_dot(xt, ones, ar="df64",
+                                                                precise=True))
+        v = float(got.hi.double() + got.lo.double())
+        e, gap = abs(v - ref) / abs(ref), abs(v - float(single.hi.double() + single.lo.double()))
+        note(e < 1e-12 and gap / abs(ref) < 1e-12,
+             f"pdot df64 precise cancellation n={x.size} ({cols} sign blocks): "
+             f"err={e:.3e} vs_single={gap / abs(ref):.3e} bound=1.0e-12")
+
+    # pdot df64 precise at 2^27, uniform
+    x27 = shard(_gen((N_PDOT_DF64,), "dot_x", dev), mesh, ("cols",))
+    y27 = shard(_gen((N_PDOT_DF64,), "dot_y", dev), mesh, ("cols",))
+    got, ms["pdot df64 2^27"] = timed(lambda: pdot(x27, y27, mesh, ar="df64", precise=True))
+    del x27, y27
+    if lead:
+        xf, yf = _gen((N_PDOT_DF64,), "dot_x", dev), _gen((N_PDOT_DF64,), "dot_y", dev)
+        ref = float(torch.dot(xf.double(), yf.double()))
+        single, ms1["pdot df64 2^27"] = timed(lambda: acc_dot(xf, yf, ar="df64", precise=True))
+        v = float(got.hi.double() + got.lo.double())
+        e, gap = abs(v - ref) / abs(ref), abs(v - float(single.hi.double() + single.lo.double())) \
+            / abs(ref)
+        note(e < 1e-12 and gap < 1e-12, f"pdot df64 precise n=2^27: err={e:.3e} "
+             f"vs_single={gap:.3e} bound=1.0e-12")
+        del xf, yf
+
+    # pgemv df64 on the cancellation construction, against the f32 tier
+    a = _cancel_gemv(cols)
+    at = interop.from_numpy(a, device=dev)
+    m, n = a.shape
+    xo, r0 = torch.ones(n, device=dev), torch.zeros(m, device=dev)
+    errs = {}
+    for ar in ("df64", "f32"):
+        y = pgemv(shard(at, mesh, ("rows", "cols")), shard(xo, mesh, ("cols",)),
+                  shard(r0, mesh, ("rows",)), 1.0, 0.0, ar=ar, mesh=mesh)
+        y = unshard(y, mesh, ("rows",), (m,))
+        if lead:
+            ref = at.double().sum(1)
+            errs[ar] = float((y.double() - ref).abs().sum() / ref.abs().sum())
+    if lead:
+        note(errs["df64"] < 2e-4 and errs["df64"] < errs["f32"] / 5,
+             f"pgemv df64 cancellation {m}x{n}: err={errs['df64']:.3e} (f32 tier "
+             f"{errs['f32']:.3e}) bound=2.0e-04 and a fifth of the f32 tier's")
+
+    # pgemv at 16384^2: Acc<f32,bf16>, f32 and df64 (fast) on f32 storage
+    a32 = _gen((N_GEMV, N_GEMV), "gemv_a", dev)
+    xg, rg = _gen((N_GEMV,), "gemv_x", dev), _gen((N_GEMV,), "gemv_res", dev)
+    for label, st, ar, tol in (("Acc<f32,bf16>", torch.bfloat16, "f32", tolerance.TOL["f32"]),
+                               ("f32", torch.float32, "f32", tolerance.TOL["f32"]),
+                               ("Acc<df64,f32>", torch.float32, "df64",
+                                tolerance.TOL["df64_fast"])):
+        a_s = shard(a32.to(st), mesh, ("rows", "cols"))
+        x_s, r_s = shard(xg.to(st), mesh, ("cols",)), shard(rg, mesh, ("rows",))
+        y, ms[f"pgemv {label}"] = timed(lambda: pgemv(a_s, x_s, r_s, 1.0, 1.0, ar=ar, mesh=mesh))
+        y = unshard(y, mesh, ("rows",), (N_GEMV,))
+        del a_s
+        if lead:
+            ast, xst = a32.to(st), xg.to(st)
+            single, ms1[f"pgemv {label}"] = timed(lambda: acc_gemv(ast, xst, rg, 1.0, 1.0,
+                                                                    ar=ar))
+            a64, x64 = ast.double(), xst.double()
+            ref = torch.mv(a64, x64) + rg.double()
+            scale = torch.mv(a64.abs(), x64.abs()) + rg.double().abs()
+            del a64, ast
+            e = tolerance.gemv_row_err(y, ref, scale, y.dtype)
+            gap = tolerance.gemv_row_err(y, single, scale, y.dtype)
+            note(e <= tol and gap <= 2 * tol, f"pgemv {label} {N_GEMV}^2 beta=1: err={e:.3e} "
+                 f"vs_single={gap:.3e} bound={tol:.1e}")
+            del ref, scale
+    del a32
+
+    # ptrsv and ptrsm f32 on the main path's operand (unit upper,
+    # uniform(-1, 1)/n, b = ones; k = 64 seeded right-hand sides)
+    at = _gen((N_TRSV, N_TRSV), "trsv_a", dev).mul_(1.0 / N_TRSV)
+    bt = torch.ones(N_TRSV, device=dev)
+    bm = _gen((N_TRSV, K_PTRSM), "trsv_b", dev)
+    a_rows = shard(at, mesh, ("rows", None), identity_tail=True)
+    xv, ms["ptrsv f32"] = timed(lambda: ptrsv(a_rows, shard(bt, mesh, ("rows",)), "upper", True,
+                                              "f32", mesh=mesh))
+    xv = unshard(xv, mesh, ("rows",), (N_TRSV,))
+    del a_rows
+    xm, ms[f"ptrsm f32 k={K_PTRSM}"] = timed(lambda: ptrsm(at, shard(bm, mesh, (None, "cols")),
+                                                           "upper", True, "f32", mesh=mesh))
+    xm = unshard(xm, mesh, (None, "cols"), (N_TRSV, K_PTRSM))
+    if lead:
+        ref = _solve64(at, bt, "upper", True)
+        single, ms1["ptrsv f32"] = timed(lambda: acc_trsv(at, bt, "upper", True, ar="f32"))
+        e, gap = _rel1(xv, ref), _rel1(xv, single)
+        note(e < 3e-5 and gap < 6e-5, f"ptrsv f32 n={N_TRSV} upper unit: err={e:.3e} "
+             f"vs_single={gap:.3e} bound=3.0e-05")
+        ref = _solve64(at, bm, "upper", True)
+        single, ms1[f"ptrsm f32 k={K_PTRSM}"] = timed(lambda: acc_trsm(at, bm, "upper", True,
+                                                                        ar="f32"))
+        e, gap = _rel1_cols(xm, ref), _rel1_cols(xm, single)
+        note(e < 1e-4 and gap < 2e-4, f"ptrsm f32 n={N_TRSV} k={K_PTRSM} (panels of "
+             f"{K_PTRSM // cols}, the sweep): err={e:.3e} vs_single={gap:.3e} bound=1.0e-04")
+        del ref, single
+    del at, bm, xv, xm
+
+    # pcg at n = 8192, 120 iterations, against single-card cg's |r|^2
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+
+    acg, bcg = sb.spd_system(N_PCG, SEED, dev)
+    for ar in ("f32", "df64"):
+        (_, rp, itp), ms[f"pcg f32/{ar}"] = timed(
+            lambda ar=ar: pcg(shard(acg, mesh, ("rows", "cols")), shard(bcg, mesh, ("cols",)),
+                              mesh=mesh, iters=PCG_ITERS, ar=ar))
+        if lead:
+            (_, rs, its), ms1[f"pcg f32/{ar}"] = timed(
+                lambda ar=ar: solvers.cg(acg, bcg, iters=PCG_ITERS, ar=ar))
+            rp, rs = float(rp), float(rs)
+            note(math.isfinite(rp) and rp <= rs * 10 + 1e-12 and rs <= rp * 10 + 1e-12
+                 and int(itp) == int(its) == PCG_ITERS,
+                 f"pcg f32/{ar} n={N_PCG} {PCG_ITERS} iterations: |r|^2 {rp:.4e}, single-card "
+                 f"cg {rs:.4e}, bound 10x either way")
+    if lead:
+        how = ("ranks time-share one card over gloo: not a scaling number" if mesh.host_staged
+               else f"one rank a card over {mesh.transport}")
+        lines.append(f"time sharded {tag} ({how}), host ms a call, min of 3, sharded / "
+                     "single-card on rank 0's card: "
+                     + ", ".join(f"{k} {v:.3f} / {ms1[k]:.3f}" for k, v in ms.items()))
+    return {"lines": lines, "bad": bad}
+
+
+def _gen(shape, role: str, dev) -> torch.Tensor:
+    from accblas_tpu_torch.utils import devgen
+
+    return devgen.gen_f32(shape, SEED, role, device=dev)
+
+
+def phase_sharded() -> None:
+    """The sharded layer (accblas_tpu_torch.parallel): (a) a 1 x 1 mesh over
+    NCCL in this process (sharded_one_rank); (b) 4 ranks sharing cuda:0 over
+    gloo with host-staged collectives (NCCL refuses two ranks on one GPU):
+    the dryrun and every op at full width (sharded_rank_checks); (c) the
+    solver driver's --pcg table at n = 8192, 120 iterations, over the 4
+    ranks, each pcg resid within 4 x the single-card cg resid."""
+    from accblas_tpu_torch.bench import solvers_benchmark as sb
+    from accblas_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    bad = sharded_one_rank()
+    log(f"sharded 1x1: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    res = launch.run(sharded_rank_checks, SHARDED_RANKS, device="cuda", timeout=600)[0]
+    for line in res["lines"]:
+        log(line)
+    bad += res["bad"]
+    log(f"sharded 2x2: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    rows = sb.pcg_table(N_PCG, PCG_ITERS, SHARDED_RANKS, "cuda")
+    for row in rows:
+        _, variant, rp, rs = row.split(";")
+        ok = float(rp) <= 4 * float(rs)
+        log(f"pcg row {variant}: pcg resid {float(rp):.4e}, cg resid {float(rs):.4e}, "
+            f"bound 4 x cg: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            bad.append(f"--pcg {variant}: pcg resid {rp} above 4 x cg resid {rs}")
+    log(f"pcg table: {time.perf_counter() - t1:.1f} s; sharded phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("sharded phase failed:\n" + "\n".join(bad))
 
 
 def _run(name: str, phase):
@@ -1478,6 +1869,7 @@ def main() -> int:
     _run("drivers", phase_drivers)
     _run("trsm routes", phase_trsm_routes)
     _run("solvers", phase_solvers)
+    _run("sharded", phase_sharded)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -698,3 +698,98 @@ def test_cg_kernels_against_plain_injected(cuda, ar):
     gap = float((xk.double() - xp.double()).norm() / xp.double().norm())
     assert gap <= tolerance.TOL["f32"], gap
     assert sb.df64_residual(a, b, xk) < 4 * 3.5373781116606202e-06
+
+
+# --------------------------------------------------------------------------
+# the sharded layer (accblas_tpu_torch.parallel) on the card
+# --------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same_bits(u, v) for u, v in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def test_sharded_one_rank_nccl_equals_single_card(cuda, tmp_path):
+    """On a 1 x 1 mesh over NCCL every sharded op equals its single-card op
+    bit for bit: a sum of one term, and a df_sum of one pair, is the
+    identity."""
+    from accblas_tpu_torch.models import solvers
+    from accblas_tpu_torch.parallel import collectives, make_mesh, pcg, pdot, pgemv, ptrsm, ptrsv
+    from accblas_tpu_torch.parallel import shard
+
+    collectives.init(0, 1, str(tmp_path), "nccl")
+    try:
+        mesh = make_mesh()
+        assert mesh.transport == "nccl" and not mesh.host_staged
+        x = devgen.gen_f32((100_003,), 7, "dot_x", device=cuda)
+        y = devgen.gen_f32((100_003,), 7, "dot_y", device=cuda)
+        a = devgen.gen_f32((1000, 3000), 7, "gemv_a", device=cuda).to(torch.bfloat16)
+        xg = devgen.gen_f32((3000,), 7, "gemv_x", device=cuda).to(torch.bfloat16)
+        rg = devgen.gen_f32((1000,), 7, "gemv_res", device=cuda)
+        t = devgen.gen_f32((1000, 1000), 7, "trsv_a", device=cuda) / 1000
+        bt = torch.ones(1000, device=cuda)
+        bm = devgen.gen_f32((1000, 8), 7, "trsv_b", device=cuda)
+        m = devgen.gen_f32((512, 512), 7, "gemv_a", device=cuda)
+        spd = m @ m.T / 512 + 2 * torch.eye(512, device=cuda)
+        pairs = [
+            (pdot(x, y, mesh, ar="f32"), accblas_tpu_torch.acc_dot(x, y, ar="f32")),
+            (pdot(x, y, mesh, ar="df64", precise=True),
+             accblas_tpu_torch.acc_dot(x, y, ar="df64", precise=True)),
+            (pgemv(a, xg, rg, 1.5, 0.5, ar="f32", mesh=mesh),
+             accblas_tpu_torch.acc_gemv(a, xg, rg, 1.5, 0.5, ar="f32")),
+            (pgemv(a, xg, rg, 1.5, 0.5, ar="df64", mesh=mesh),
+             accblas_tpu_torch.acc_gemv(a, xg, rg, 1.5, 0.5, ar="df64")),
+            (ptrsv(shard(t, mesh, ("rows", None), identity_tail=True), bt, mesh=mesh),
+             accblas_tpu_torch.acc_trsv(t, bt)),
+            (ptrsm(t, bm, mesh=mesh), accblas_tpu_torch.acc_trsm(t, bm)),
+            (pcg(spd, bt[:512], mesh=mesh, iters=40, ar="df64"),
+             solvers.cg(spd, bt[:512], iters=40, ar="df64")),
+        ]
+        for i, (got, want) in enumerate(pairs):
+            assert _same_bits(got, want), i
+    finally:
+        collectives.shutdown()
+
+
+def test_sharded_four_ranks_share_one_card(cuda):
+    """4 ranks on one card over gloo, host-staged (NCCL refuses two ranks on
+    one GPU): the kernels run on the card, the results meet the JAX tests'
+    bounds against float64."""
+    import scipy.linalg
+
+    from accblas_tpu_torch.parallel import launch
+    from accblas_tpu_torch.parallel.launch import Call, Sharded
+
+    p = "accblas_tpu_torch.parallel.blas:"
+    rng = np.random.default_rng(7)
+    n = 8192
+    x = (np.repeat([1.0, -1.0], n // 2) / 32.0 + rng.uniform(-1, 1, n) * 1e-2).astype(np.float32)
+    ones = np.ones(n, np.float32)
+    a = gen_mtx(MatrixInfo(300, 1001), seed=3).astype(np.float32)
+    xv = gen_mtx(MatrixInfo(1, 1001), seed=4)[0].astype(np.float32)
+    r = gen_mtx(MatrixInfo(1, 300), seed=5)[0].astype(np.float32)
+    t = (np.triu(gen_mtx(MatrixInfo(777, 777), seed=6)) / 777 + np.eye(777)).astype(np.float32)
+    b = gen_mtx(MatrixInfo(1, 777), seed=8)[0].astype(np.float32)
+    calls = [
+        Call(p + "pdot", (Sharded(x, ("cols",)), Sharded(ones, ("cols",))),
+             {"ar": "df64", "precise": True}),
+        Call(p + "pgemv", (Sharded(a, ("rows", "cols")), Sharded(xv, ("cols",)),
+                           Sharded(r, ("rows",)), 1.5, -0.5), {"ar": "df64"},
+             out=((("rows",), (300,)),)),
+        Call(p + "ptrsv", (Sharded(t, ("rows", None), identity_tail=True), Sharded(b, ("rows",)),
+                           "upper", False), {}, out=((("rows",), (777,)),)),
+    ]
+    res = launch.run(launch.apply, 4, calls, "cuda", device="cuda", timeout=300)[0]
+    dot, gv, tv = (c["values"][0] for c in res)
+    ref = float(x.astype(np.float64).sum())
+    assert abs(float(dot) - ref) / abs(ref) < 1e-12
+    gref = 1.5 * a.astype(np.float64) @ xv - 0.5 * r
+    assert np.abs(gv - gref).sum() / np.abs(gref).sum() < 3e-6
+    tref = scipy.linalg.solve_triangular(t.astype(np.float64), b)
+    assert np.abs(tv - tref).sum() / np.abs(tref).sum() < 3e-5

@@ -96,7 +96,9 @@ def test_port_imports_no_jax():
         "accblas_tpu_torch.native.host, accblas_tpu_torch.bench.common, "
         "accblas_tpu_torch.bench.dot_benchmark, accblas_tpu_torch.bench.gemv_benchmark, "
         "accblas_tpu_torch.bench.trsv_benchmark, accblas_tpu_torch.bench.plot, "
-        "accblas_tpu_torch.models, accblas_tpu_torch.bench.solvers_benchmark, chip_smoke; "
+        "accblas_tpu_torch.models, accblas_tpu_torch.bench.solvers_benchmark, chip_smoke, "
+        "accblas_tpu_torch.parallel, accblas_tpu_torch.parallel.launch, "
+        "accblas_tpu_torch.parallel.dryrun; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'accblas_tpu')); print(bad); sys.exit(1 if bad else 0)"
     )
