@@ -60,7 +60,7 @@ VARIANTS = [
 
 def family_arrays(family: str, x32, y32, seed: int, r: int):
     """One storage family's device operands, derived from the f32 copies."""
-    from ..utils import devgen
+    from ..utils import devgen, threefry
     from ..utils.sr import sr_round_device_chunked
 
     if family == "f32":
@@ -69,9 +69,9 @@ def family_arrays(family: str, x32, y32, seed: int, r: int):
         dt = torch.bfloat16 if family == "bf16" else torch.float16
         return x32.to(dt), y32.to(dt)
     if family == "f8":
-        gx, gy = (devgen.generator(seed, "sr", r, sub, x32.device) for sub in (0, 1))
-        return (sr_round_device_chunked(x32, "f8e4m3", gx),
-                sr_round_device_chunked(y32, "f8e4m3", gy))
+        kx, ky = threefry.split(devgen.key(seed, "sr", r))
+        return (sr_round_device_chunked(x32, "f8e4m3", kx),
+                sr_round_device_chunked(y32, "f8e4m3", ky))
     raise ValueError(family)
 
 

@@ -49,7 +49,7 @@ VARIANTS = [
 
 
 def family_arrays(fam: str, a32, x32, seed: int):
-    from ..utils import devgen
+    from ..utils import devgen, threefry
     from ..utils.sr import sr_round_device_chunked
 
     if fam == "f32":
@@ -58,9 +58,9 @@ def family_arrays(fam: str, a32, x32, seed: int):
         dt = torch.bfloat16 if fam == "bf16" else torch.float16
         return a32.to(dt), x32.to(dt)
     if fam == "f8":
-        ga, gx = (devgen.generator(seed, "sr", 0, sub, a32.device) for sub in (0, 1))
-        return (sr_round_device_chunked(a32, "f8e4m3", ga),
-                sr_round_device_chunked(x32, "f8e4m3", gx))
+        ka, kx = threefry.split(devgen.key(seed, "sr", 0))
+        return (sr_round_device_chunked(a32, "f8e4m3", ka),
+                sr_round_device_chunked(x32, "f8e4m3", kx))
     raise ValueError(fam)
 
 

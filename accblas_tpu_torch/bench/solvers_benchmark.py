@@ -17,12 +17,11 @@ bf16/df64: storage of A / arithmetic of the matvec and the dots):
   iterations: A x by the df64 precise GEMV against the f32-stored operator,
   the difference and the norms in numpy fp64.
 
-The system is A = Cᵀ C / n + 0.01 I with C uniform(-1, 1), drawn on the
-device (``utils.devgen``, the port's own stream, so the values are not the
-JAX driver's), and b uniform(-1, 1). One line each for
-``richardson_refine`` and ``power_method`` goes to stderr at the last size.
-The JAX driver's ``--pcg`` table needs the sharded layer, which the port
-does not have yet.
+The system is the JAX driver's: A = Cᵀ C / n + 0.01 I with C and b
+uniform(-1, 1) under the two keys of ``split(key(seed))``, drawn on the
+device (``spd_draws``, bit for bit the JAX driver's C and b). One line
+each for ``richardson_refine`` and ``power_method`` goes to stderr at the
+last size.
 """
 
 from __future__ import annotations
@@ -41,18 +40,29 @@ SEED = 42
 NAMES = ["CG f32/f32", "CG f32/df64", "CG bf16/f32", "CG bf16/df64"]
 
 
+def spd_draws(n: int, seed: int, device):
+    """The JAX driver's draws: with ku, kb = split(key(seed)), C =
+    uniform(ku, (n, n), -1, 1) and b = uniform(kb, (n,), -1, 1), f32 on
+    `device`."""
+    from ..utils import threefry
+
+    ku, kb = threefry.split(threefry.key(seed))
+    return (threefry.uniform(ku, (n, n), -1.0, 1.0, device),
+            threefry.uniform(kb, (n,), -1.0, 1.0, device))
+
+
 def spd_system(n: int, seed: int, device):
     """A = Cᵀ C / n + 0.01 I (Wishart plus a ridge, kappa ~ 400: hard enough
-    that a 120-iteration budget is spent) and b, both f32 on `device`. The
-    product is genuine f32 (``ieee_f32``)."""
+    that a 120-iteration budget is spent) and b, both f32 on `device`, from
+    ``spd_draws``. The product is genuine f32 (``ieee_f32``), a plain
+    product outside the kernels, as the JAX driver leaves it to XLA."""
     from ..ops.trsv import ieee_f32
-    from ..utils import devgen
 
-    c = devgen.gen_f32((n, n), seed, "solvers_c", device=device)
+    c, b = spd_draws(n, seed, device)
     with ieee_f32():
         a = torch.matmul(c.T, c).div_(n)
     a.diagonal().add_(0.01)
-    return a, devgen.gen_f32((n,), seed, "solvers_b", device=device)
+    return a, b
 
 
 def df64_residual(a32, b, x) -> float:

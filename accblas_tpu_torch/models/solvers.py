@@ -124,11 +124,11 @@ def richardson_refine(a_lo, a_hi, b, *, iters: int = 5, omega: float = 1.0, ar: 
 
 def power_method(a, *, iters: int = 20, ar: str = "f32", seed: int = 0):
     """Dominant-eigenvalue estimate by the accessor GEMV and DOT: the start
-    vector is a standard normal draw of a torch.Generator on a's device,
-    seeded with `seed`. Returns (the last iterate, the estimate)."""
-    g = torch.Generator(device=a.device)
-    g.manual_seed(seed)
-    x0 = torch.randn(a.shape[1], generator=g, dtype=torch.float32, device=a.device)
+    vector is the JAX package's, ``normal(key(seed), (n,))`` drawn on a's
+    device (``utils.threefry``). Returns (the last iterate, the estimate)."""
+    from ..utils import threefry
+
+    x0 = threefry.normal(threefry.key(seed), (a.shape[1],), a.device)
     return power_iterate(a, x0, iters=iters, ar=ar)
 
 

@@ -73,7 +73,8 @@ def _load():
     lib.ab_gen_mtx.argtypes = [_D, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                                ctypes.c_uint64, ctypes.c_double, ctypes.c_double]
     lib.ab_gen_mtx.restype = None
-    lib.ab_master_f64.argtypes = [_D, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64]
+    lib.ab_master_f64.argtypes = [_D, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+                                  ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32]
     lib.ab_master_f64.restype = None
     lib.ab_abs_diff_norm1.argtypes = [_D, _D, ctypes.c_int64]
     lib.ab_abs_diff_norm1.restype = ctypes.c_double
@@ -112,10 +113,11 @@ def gen_mtx(rows: int, cols: int, stride: int, seed: int, lo: float, hi: float) 
     return out
 
 
-def master_f64(start: int, n: int, stream: int) -> np.ndarray:
-    """fp64 masters of elements [start, start + n) of a devgen stream."""
+def master_f64(start: int, n: int, ka, kb) -> np.ndarray:
+    """fp64 masters of flat elements [start, start + n) of a devgen draw
+    under the threefry keys `ka` and `kb` (pairs of 32-bit words)."""
     out = np.empty(n, np.float64)
-    _load().ab_master_f64(_dptr(out), start, n, stream)
+    _load().ab_master_f64(_dptr(out), start, n, *ka, *kb)
     return out
 
 

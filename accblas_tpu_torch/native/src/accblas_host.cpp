@@ -7,7 +7,8 @@
 // - data generation (reference cuda/matrix_helper.cuh:28-75): the
 //   counter-based splitmix64 stream of accblas_tpu_torch/utils/prng.py;
 // - the fp64 master of the device draw of accblas_tpu_torch/utils/devgen.py
-//   (ab_master_f64), so the host replays a multi-GiB operand in seconds;
+//   (ab_master_f64: JAX's threefry2x32 uniforms, utils/threefry.py), so the
+//   host replays a multi-GiB operand in seconds;
 // - precision conversion (cuda/matrix_helper.cuh:93-103) and the error
 //   reductions (cuda/utils.cuh:281-332), with long double accumulation.
 //
@@ -87,10 +88,32 @@ static inline double uniform_at(uint64_t idx, uint64_t seed, uint64_t rnd,
     return lo + u * (hi - lo);
 }
 
-// uniform(-1, 1) float32 on the 2^-23 grid from the top 24 bits (devgen's draw)
-static inline float draw_f32(uint64_t idx, uint64_t stream, uint64_t rnd) {
-    uint64_t bits = splitmix64(key_at(idx, stream, rnd));
-    return (float)(bits >> 40) * 0x1p-23f - 1.0f;
+static inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+// The 32 random bits of threefry2x32 under key (k0, k1) at the 64-bit
+// counter c, split into (hi, lo) words: the xor of the two output words.
+static inline uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint64_t c) {
+    static const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+    const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+    uint32_t x0 = (uint32_t)(c >> 32) + ks[0], x1 = (uint32_t)c + ks[1];
+    for (int i = 0; i < 5; ++i) {
+        for (int r : rot[i % 2]) {
+            x0 += x1;
+            x1 = rotl32(x1, r) ^ x0;
+        }
+        x0 += ks[(i + 1) % 3];
+        x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+    }
+    return x0 ^ x1;
+}
+
+// jax.random.uniform(-1, 1) in float32 from 32 random bits: a float in
+// [1, 2) with the top 23 bits as mantissa, minus 1, times 2, minus 1
+static inline float uniform_pm1(uint32_t bits) {
+    uint32_t u = (bits >> 9) | 0x3F800000u;
+    float f;
+    std::memcpy(&f, &u, 4);
+    return std::max(-1.0f, (f - 1.0f) * 2.0f + -1.0f);
 }
 
 // Generate a rows x stride row-major float64 matrix; the [rows, cols] view is
@@ -116,14 +139,15 @@ void ab_gen_mtx(double* out, int64_t rows, int64_t cols, int64_t stride,
     });
 }
 
-// The fp64 master a + 2^-24 b of elements [start, start + n) of a stream,
-// a and b its two float32 draws (rounds 0 and 1).
-void ab_master_f64(double* out, int64_t start, int64_t n, uint64_t stream) {
+// The fp64 master a + 2^-24 b of flat elements [start, start + n) of a
+// draw, a and b its float32 uniforms under keys (ka0, ka1) and (kb0, kb1).
+void ab_master_f64(double* out, int64_t start, int64_t n, uint32_t ka0, uint32_t ka1,
+                   uint32_t kb0, uint32_t kb1) {
     parallel_for(n, [=](int64_t i0, int64_t i1) {
         for (int64_t i = i0; i < i1; ++i) {
-            uint64_t idx = (uint64_t)(start + i);
-            double a = (double)draw_f32(idx, stream, 0);
-            double b = (double)draw_f32(idx, stream, 1);
+            const uint64_t c = (uint64_t)(start + i);
+            double a = (double)uniform_pm1(threefry_bits(ka0, ka1, c));
+            double b = (double)uniform_pm1(threefry_bits(kb0, kb1, c));
             out[i] = a + 0x1p-24 * b;
         }
     });
@@ -159,6 +183,6 @@ void ab_convert_f64_bf16(const double* in, uint16_t* out, int64_t n) {
     });
 }
 
-int ab_version() { return 2; }
+int ab_version() { return 3; }
 
 } // extern "C"

@@ -1,6 +1,6 @@
 """Run a function on R ranks, one process each, joined in one process group.
 
-    results = launch.run(fn, 4, *args, device="cpu")
+    results = launch.run(fn, 4, *args, device="cpu")   # or device=None: the cards
 
 `fn` must be importable by name (a module-level function of this package,
 or of the script that was run), since each rank is a spawned process that
@@ -86,11 +86,12 @@ def _collect(procs, results, n_ranks: int, deadline: float) -> dict:
     return got
 
 
-def run(fn, n_ranks: int, *args, device="cpu", timeout: float = DEADLINE_S) -> list:
+def run(fn, n_ranks: int, *args, device=None, timeout: float = DEADLINE_S) -> list:
     """fn(*args) on `n_ranks` spawned ranks; their results in rank order.
-    `device` says where the ranks compute ("cpu" or "cuda"), which sets the
-    backend; the ranks choose their own device (``make_mesh``)."""
-    device = torch.device(device)
+    `device` says where the ranks compute ("cuda", or None for the cards,
+    which raises where there is none; "cpu" only when asked), which sets
+    the backend; the ranks choose their own device (``make_mesh``)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("launch: no CUDA device (torch.cuda.is_available() is False)")
@@ -174,8 +175,9 @@ def _as_f64(v) -> np.ndarray:
     return torch.as_tensor(v).double().cpu().numpy()
 
 
-def apply(calls, device="cpu") -> list[dict]:
-    """Run `calls` in order on this rank. Each result is a dict: `values`,
+def apply(calls, device=None) -> list[dict]:
+    """Run `calls` in order on this rank, on `device` (None: this rank's
+    card, as ``make_mesh`` picks it). Each result is a dict: `values`,
     the outputs as float64 numpy arrays (a DF as hi + lo, exactly),
     `dtypes`, their torch dtypes, and `counts`, the collectives the call
     itself issued, {(op, axis, dtype): n}."""

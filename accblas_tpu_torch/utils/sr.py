@@ -15,11 +15,13 @@ pattern one unit toward the residual's side through a monotone total-order
 key (sign-magnitude -> lexicographic), taken with probability
 |residual| / gap. Works for f8e4m3 / f8e5m2 / bf16 / f16. ``sr_round`` is
 the numpy version (a copy of the JAX package's); ``sr_round_device`` the
-torch one, with uniforms from an explicit ``torch.Generator``. The host
-version computes the probability in f64 and the torch one in f32, so a host
-replay with the same uniforms is statistically identical, not bit-exact
-(elements whose uniform lands within ~1 f32 ulp of the threshold can round
-to the other neighbour).
+torch one, with its uniforms drawn as ``jax.random.uniform`` under a
+threefry key (``utils.threefry``: the draw kernel on a card), so it gives
+the JAX package's ``sr_round_device`` bits for the same key. The host
+version computes the probability in f64 and the device one in f32, as in
+the JAX package, so a host replay with the same uniforms is statistically
+identical, not bit-exact (elements whose uniform lands within ~1 f32 ulp of
+the threshold can round to the other neighbour).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..accessor import dtypes
+from . import threefry
 
 
 def np_dtype(st):
@@ -90,9 +93,9 @@ def sr_round(src: np.ndarray, st, u: np.ndarray | None = None, seed: int = 0) ->
 _BITS = {1: torch.uint8, 2: torch.int16}
 
 
-def sr_round_device(src: torch.Tensor, st, generator: torch.Generator) -> torch.Tensor:
+def sr_round_device(src: torch.Tensor, st, key) -> torch.Tensor:
     """SR of `src` to storage type `st` in torch ops on src's device (f32
-    arithmetic), uniforms drawn from `generator` (on the same device).
+    arithmetic), with the uniforms ``jax.random.uniform(key, src.shape)``.
 
     The bit patterns are worked in int32 and the result selected there:
     ``torch.where`` takes no float8 operands."""
@@ -119,22 +122,23 @@ def sr_round_device(src: torch.Tensor, st, generator: torch.Generator) -> torch.
     nb32 = to_tgt(nb).float()
     gap = (nb32 - c32).abs()
     p = torch.where(gap > 0, err.abs() / torch.where(gap > 0, gap, 1.0), 0.0)
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+    u = threefry.uniform(key, x.shape, device=x.device)
     return to_tgt(torch.where((u < p) & torch.isfinite(nb32), nb, b))
 
 
-def sr_round_device_chunked(src: torch.Tensor, st, generator: torch.Generator,
-                            chunk: int = 2**26) -> torch.Tensor:
+def sr_round_device_chunked(src: torch.Tensor, st, key, chunk: int = 2**26) -> torch.Tensor:
     """Chunked device SR for multi-GiB operands: the SR temporaries are
     several times the f32 input, which would not fit beside a sweep's
     largest allocation. Any shape: the input is flattened and the result
-    reshaped back, so a 2-D operand is chunked too. The chunks draw from
-    `generator` in turn."""
+    reshaped back, so a 2-D operand is chunked too. As in the JAX package,
+    chunk c draws under ``fold_in(key, c)`` when there is more than one
+    chunk, and one call under `key` itself otherwise."""
     flat = src.reshape(-1)
     n = flat.numel()
     if n <= chunk:
-        return sr_round_device(src, st, generator)
+        return sr_round_device(src, st, key)
     out = torch.empty(n, dtype=dtypes.torch_dtype(dtypes.canon(st)), device=src.device)
     for i0 in range(0, n, chunk):
-        out[i0 : i0 + chunk] = sr_round_device(flat[i0 : i0 + chunk], st, generator)
+        out[i0 : i0 + chunk] = sr_round_device(flat[i0 : i0 + chunk], st,
+                                               threefry.fold_in(key, i0 // chunk))
     return out.reshape(src.shape)

@@ -6,7 +6,8 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
-     prints ptxas' registers and spills of the GEMV kernel's instantiations;
+     prints ptxas' registers and spills of the GEMV kernel's instantiations
+     and of the draw kernel's;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -17,15 +18,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      50 back-to-back TRSV and TRSM calls on one stream, bit for bit equal;
      and a solve whose grid holds more block rows than the card holds
      sweep CTAs at once (the occupancy is printed), against float64;
-  4. main path at full size through the public API: acc_dot Acc<f32, bf16>
-     at n = 2^29, acc_gemv Acc<f32, bf16> at 16384^2 (beta = 0), and the
-     flagship 1024x2048 GEMV (alpha = beta = 1) from seeded host data; then
-     trsv fixed f32 and acc_trsv Acc<df64, f32> at n = 16384 (upper, unit,
-     A = uniform(-1, 1)/n, b = ones, as bench.py) and the df64 residual of
-     the f32 solution (tri_gemv_df64); each checked against float64, with the
-     launch counters reset just before and read just after each path; the
-     TRSV calls are profiled (torch.profiler), and the sweep must be one
-     kernel launch per call;
+  4. main path at full size through the public API, on bench.py's exact
+     operands drawn on the card by the draw kernel (JAX's threefry bits):
+     acc_dot Acc<f32, bf16> at n = 2^29 (gen_f32 dot_x, dot_y as bf16),
+     acc_gemv Acc<f32, bf16> at 16384^2 (beta = 0; gemv_a, gemv_x,
+     gemv_res), and the flagship 1024x2048 GEMV (alpha = beta = 1) from
+     seeded host data; then trsv fixed f32 and acc_trsv Acc<df64, f32> at
+     n = 16384 (upper, unit, A = uniform(key(0), (n, n), -1, 1)/n, b = ones,
+     as bench.py) and the df64 residual of the f32 solution
+     (tri_gemv_df64); each checked against float64, with the launch counters
+     reset just before the draws and read just after each path; the TRSV
+     calls are profiled (torch.profiler), and the sweep must be one kernel
+     launch per call; then the draw kernel on the 2^29 DOT draw: its bits
+     against the numpy replay (first, last and every 512th 2^20 elements)
+     and the native replay (all of them), each mode against its plain torch
+     version on 2^24 elements past counter 2^32, and its time beside its
+     plain version and its byte and integer-operation bounds;
   5. timing of each kernel, of its plain version and of the one PyTorch call
      that computes the same function, where there is one, at the main-path
      shapes (1 warm-up, 10 reps, minimum, CUDA events), beside the least time
@@ -42,14 +50,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the reference's 10 randomizations), trsv_benchmark (n = 16384) in
      speed mode, in error mode on the non-unit triangle, and as TRSM with 8
      right-hand sides;
-     each CSV printed ("csv" lines). It fails on a cell that is NaN, a
+     and GEMV in error mode once more at 24576^2, the drawn shape of the v5e
+     CSV's run; each CSV printed ("csv" lines), each error cell beside its
+     v5e cell ("ratio" lines). It fails on a cell that is NaN, a
      speed cell that is not positive, an error cell above its bound (f32
      tiers 1e-5, df64 over f32 5e-7, TRSV over f32 storage 1e-4, the df64
      oracles 1e-12 for DOT and GEMV and 1e-11 for TRSV, narrow storage
      4 x max(the JAX package's error in bench_results/ at that size, 2^-8)),
-     a draw of gen_f32 that differs in any bit from its numpy replay (first
-     and last 2^20 elements), or a kernel of the path (DOT, GEMV, the leaf
-     gather, the sweep) that the drivers never launched;
+     a data-set column (Acc<df64,bf16>, Acc<df64,f32> precise) more than
+     1e-3 relative from the v5e cell where the drawn shape is the CSV
+     run's (DOT at 2^27, GEMV at 24576), an f32-arithmetic column over
+     narrow storage more than NARROW_TOL from it there, a draw of gen_f32 that differs in
+     any bit from its numpy replay (first and last 2^20 elements of the
+     16384^2 draw), or a kernel of the path (DOT, GEMV, the leaf gather,
+     the sweep, the draw) that the drivers never launched;
   7. trsm routes: on the LU factor of the TRSV driver's master at n = 4096,
      8192 and 16384, k = 1, 8, 16, 32, 64 and 128 (upper, non-unit), the
      sweep, the blocked composition and xla_trsm side by side for f32
@@ -59,9 +73,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      host ms per call, and the route resident=None takes ("route" lines);
      then every route at n = 1024 on the JAX tests' operand, to their
      bounds;
-  8. solvers: the solver driver at its default n = 8192 (the CSV printed,
-     every it_per_s finite and positive, every resid within 4 x the v5e
-     cell, the DOT and GEMV kernels launched), CG through the kernels
+  8. solvers: the solver driver at its default n = 8192 on the JAX
+     driver's system, drawn bit for bit (the CSV printed, every it_per_s
+     finite and positive, every resid within 4 x the v5e cell and its ratio
+     to it logged, the DOT and GEMV kernels launched), CG through the kernels
      against CG with the plain versions injected at n = 1024, and one CG
      iteration split into event, device and host time ("split cg" lines);
   9. sharded (accblas_tpu_torch.parallel): (a) a 1 x 1 mesh over NCCL in
@@ -102,6 +117,16 @@ SEED = 42
 # and float32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# the draw kernel's integer work (csrc/devgen.cu) that only the SM's
+# integer ALU pipe (64 lanes an SM a clock) can do: a threefry block's 20
+# rotations (SHF), 20 xors and the output words' xor (LOP3); a uniform's
+# shift and or. Its ~27 adds a block can issue on the FMA pipe's other 64
+# lanes (IMAD) alongside.
+DRAW_ALU_OPS_PER_BLOCK = 41
+DRAW_ALU_OPS_PER_UNIFORM = 2
+INT_LANES_PER_SM = 64
+# launches of the draw kernel on the main path (phases 4 and 5)
+MAIN_DRAWS = {"launches": 0}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -141,6 +166,9 @@ def phase_build():
     paths = _build.build()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
+    for line in _build.build_log("devgen").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas devgen: {line.strip()}")
 
 
 def log_ptxas(kernel: str, text: str):
@@ -506,12 +534,18 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 def phase_main() -> list[dict]:
     from accblas_tpu_torch import acc_dot, acc_gemv
     from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import draw as drawops
     from accblas_tpu_torch.ops import gemv as gemvops
     from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx, interop, tolerance
     from accblas_tpu_torch.utils.bench import benchmark_function
 
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
+    # ---- the main path, through the public API: bench.py's operands, drawn
+    # on the card, then its DOT and GEMV ----
+    drawops.launches = 0
+    dotops.launches = 0
+    gemvops.launches = 0
     xb = devgen.gen_f32((N_DOT,), SEED, "dot_x", device=dev).to(bf)
     yb = devgen.gen_f32((N_DOT,), SEED, "dot_y", device=dev).to(bf)
     ab = devgen.gen_f32((N_GEMV, N_GEMV), SEED, "gemv_a", device=dev).to(bf)
@@ -525,16 +559,13 @@ def phase_main() -> list[dict]:
                             device=dev).to(bf)
     re = interop.from_numpy(gen_mtx(MatrixInfo(1, me), seed=44)[0].astype("float32"),
                             device=dev)
-    torch.cuda.synchronize()
-
-    # ---- the main path, through the public API ----
-    dotops.launches = 0
-    gemvops.launches = 0
     d = acc_dot(xb, yb, ar="f32")
     g = acc_gemv(ab, xg, rg, 1.0, 0.0, ar="f32")
     e = acc_gemv(ae, xe, re, 1.0, 1.0, ar="f32")
     torch.cuda.synchronize()
-    launches = {"dot": dotops.launches, "gemv": gemvops.launches}
+    launches = {"dot": dotops.launches, "gemv": gemvops.launches,
+                "devgen_draw": drawops.launches}
+    MAIN_DRAWS["launches"] += drawops.launches
     log(f"main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"main path did not launch every kernel: {launches}")
@@ -832,11 +863,22 @@ def gemv_split(label: str, call, plain, lib, m: int, dev) -> dict:
             "library_device_ms": lib_dev, "host_us": host}
 
 
+def _bench_trsv_operand(dev):
+    """bench.py's TRSV operand: uniform(key(0), (n, n), -1, 1) / n, unit
+    upper (the off-diagonals scaled by 1/n keep the substitution bounded),
+    and b = ones."""
+    from accblas_tpu_torch.utils import threefry
+
+    a = threefry.uniform(threefry.key(0), (N_TRSV, N_TRSV), -1.0, 1.0, dev).mul_(1.0 / N_TRSV)
+    return a, torch.ones(N_TRSV, device=dev)
+
+
 def phase_main_trsv() -> list[dict]:
     """The TRSV part of the main path (bench.py's TRSV at 16384), checked,
     then timed: the whole calls, each kernel alone, the plain versions and
     torch.linalg.solve_triangular."""
     from accblas_tpu_torch import acc_trsm, acc_trsv, trsv
+    from accblas_tpu_torch.ops import draw as drawops
     from accblas_tpu_torch.ops import tri_gemv as trigops
     from accblas_tpu_torch.ops import trsv as trsvops
     from accblas_tpu_torch.utils import devgen
@@ -844,22 +886,21 @@ def phase_main_trsv() -> list[dict]:
 
     dev = torch.device("cuda", 0)
     n = N_TRSV
-    # unit upper: the off-diagonals scaled by 1/n keep the substitution
-    # bounded (bench.py's operand)
-    a = devgen.gen_f32((n, n), SEED, "trsv_a", device=dev).mul_(1.0 / n)
-    b = torch.ones(n, device=dev)
-    torch.cuda.synchronize()
-
-    # ---- the main path, through the public API ----
+    # ---- the main path, through the public API: bench.py's operand drawn
+    # on the card, then the solves ----
+    drawops.launches = 0
     trsvops.leaf_diag_launches = 0
     trsvops.sweep_launches = 0
     trigops.launches = 0
+    a, b = _bench_trsv_operand(dev)
     x32 = trsv(a, b, "upper", True)
     xdf = acc_trsv(a, b, "upper", True, ar="df64")
     res = trigops.tri_gemv_df64(a, x32, b, "upper", True)
     torch.cuda.synchronize()
     launches = {"trsv_leaf_diag": trsvops.leaf_diag_launches,
-                "trsv_sweep": trsvops.sweep_launches, "tri_gemv": trigops.launches}
+                "trsv_sweep": trsvops.sweep_launches, "tri_gemv": trigops.launches,
+                "devgen_draw": drawops.launches}
+    MAIN_DRAWS["launches"] += drawops.launches
     log(f"main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"TRSV main path did not launch every kernel: {launches}")
@@ -1037,6 +1078,9 @@ DRIVER_RUNS = (
     ("dot", "error", ["--sweep", "single", "--error"]),
     ("gemv", "speed", ["--sweep", "single"]),
     ("gemv", "error", ["--sweep", "single", "--error"]),
+    # the drawn shape of the v5e GEMV error CSV's run (its sweep's largest
+    # size): the only GEMV row whose operands are the CSV's
+    ("gemv", "error", ["--sweep", "single", "--error", "--size", "24576"]),
     ("trsv", "speed", ["--sweep", "single"]),
     # unit-upper on an LU factor is ill-conditioned: error studies take the
     # non-unit triangle, as the JAX package's error campaigns do
@@ -1049,6 +1093,25 @@ DRIVER_RUNS = (
 # the same size, 2^-8), the envelope of utils.tolerance.narrow_bound
 F32_BOUND, DF64_BOUND, TRSV_F32_BOUND = 1e-5, 5e-7, 1e-4
 ORACLE_BOUND = {"dot": 1e-12, "gemv": 1e-12, "trsv": 1e-11}
+# The port draws the JAX package's operands, so where a driver's drawn
+# shape is the v5e CSV run's (DOT: any n, a 1-D draw's leading slice is a
+# shorter draw; GEMV: only the CSV sweep's largest size, 24576, since
+# element (i, j) of an (m, n) draw has counter i·n + j), the data-set
+# columns, whose error is the storage rounding's, reproduce the v5e cell:
+# each is held to |cell / v5e - 1| <= DATASET_TOL. A different draw moves
+# them by 10-30%.
+COMPARABLE = {"dot": lambda size: True, "gemv": lambda size: size == 24576}
+DATASET_COLS = ("Acc<df64,bf16>", "Acc<df64,f32> precise")
+DATASET_TOL = 1e-3
+# f32 arithmetic over narrow storage, where the summation order adds to
+# the storage error, on the same data: |cell / v5e - 1| <= NARROW_TOL, set
+# from the first sound reading on the H100 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, Findings), on top of the envelope of _error_bound. DOT at 2^27
+# read 2.96e-4 (bf16), 9.37e-4 (f16) and 6.6e-6 (f8e4m3); another draw of
+# the same distribution read 0.168, 0.286 and 0.599. GEMV at 24576 read
+# 8.3e-7, 3.6e-6 and 3e-8; the 16384^2 draw, other data, 1.9e-3 to 7.1e-3.
+NARROW_COLS = ("Acc<f32,bf16>", "Acc<f32,f16>", "Acc<f32,f8e4m3>")
+NARROW_TOL = {"dot": 2e-3, "gemv": 1e-4}
 
 
 def _v5e_row(csv: str, size: int) -> dict:
@@ -1075,24 +1138,24 @@ def _error_bound(driver: str, col: str, jax_row: dict) -> float:
 
 
 def _check_draws(dev) -> list[str]:
-    """The card's draws of the drivers' largest operands against their numpy
-    replay, bit for bit, on the first and last 2^20 elements; the df64 split
-    against the host master there."""
+    """The drivers' largest 2-D draw against its numpy replay, bit for bit,
+    on the first and last 2^20 elements; the df64 split against the host
+    master there (phase_draws checks the 2^29 DOT draw)."""
     from accblas_tpu_torch.utils import devgen
 
     bad = []
     k = 2**20
-    for role, shape in (("dot_x", (2**27,)), ("gemv_a", (N_GEMV, N_GEMV))):
-        t = devgen.gen_f32(shape, SEED, role, 0, device=dev).view(-1)
-        n = t.numel()
-        for lo, hi in ((0, min(k, n)), (max(n - k, 0), n)):
-            want = devgen.replay_f32(shape, SEED, role, 0, lo, hi)
-            same = np.array_equal(t[lo:hi].cpu().numpy().view(np.uint32), want.view(np.uint32))
-            log(f"draw {role} {shape} elements [{lo}, {hi}): bits equal to the numpy "
-                f"replay={same}")
-            if not same:
-                bad.append(f"gen_f32 {role} [{lo}, {hi}) differs from its numpy replay")
-        del t
+    shape = (N_GEMV, N_GEMV)
+    t = devgen.gen_f32(shape, SEED, "gemv_a", 0, device=dev).view(-1)
+    n = t.numel()
+    for lo, hi in ((0, k), (n - k, n)):
+        want = devgen.replay_f32(shape, SEED, "gemv_a", 0, lo, hi)
+        same = np.array_equal(t[lo:hi].cpu().numpy().view(np.uint32), want.view(np.uint32))
+        log(f"draw gemv_a {shape} elements [{lo}, {hi}): bits equal to the numpy "
+            f"replay={same}")
+        if not same:
+            bad.append(f"gen_f32 gemv_a [{lo}, {hi}) differs from its numpy replay")
+    del t
     xh, xl = devgen.split_df64(None, (k,), SEED, "dot_x", 0, dev)
     m = devgen.master_f64((k,), SEED, "dot_x", 0)
     same = np.array_equal(xh.cpu().numpy(), m.astype(np.float32))
@@ -1103,6 +1166,101 @@ def _check_draws(dev) -> list[str]:
     if not (same and gap < 2.0**-45):
         bad.append("split_df64 does not carry the master")
     return bad
+
+
+def draw_bound(n: int, blocks: int, out_bytes: int) -> dict:
+    """The least time in ms of a draw of `n` elements with `blocks` threefry
+    blocks (each one uniform) and `out_bytes` written an element: the bytes
+    written over the memory rate, and the integer ALU operations over the
+    SMs' 64 integer lanes at the card's top SM clock (nvidia-smi
+    clocks.max.sm)."""
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops = n * blocks * (DRAW_ALU_OPS_PER_BLOCK + DRAW_ALU_OPS_PER_UNIFORM)
+    tb = n * out_bytes / PEAK_BYTES * 1e3
+    to = ops / (sms * INT_LANES_PER_SM * clock) * 1e3
+    return {"bytes_ms": tb, "ops_ms": to, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations", "ops": ops, "clock_hz": clock,
+            "sms": sms}
+
+
+def phase_draws() -> dict:
+    """The draw kernel (csrc/devgen.cu) on the main path's largest draw, the
+    2^29 elements of bench.py's DOT operand (gen_f32 dot_x): its bits
+    against the numpy replay on the first, the last and every 512th 2^20 of
+    them, and against the native replay on all of them; each mode against
+    its plain torch version on the card over 2^24 elements from a counter
+    that carries past 2^32; then its time beside its plain version and its
+    two bounds."""
+    from accblas_tpu_torch.native import host
+    from accblas_tpu_torch.ops import draw as drawops
+    from accblas_tpu_torch.utils import devgen, threefry
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    dev = torch.device("cuda", 0)
+    chk = Checks()
+    n, k = N_DOT, 2**20
+    ka, kb = threefry.split(devgen.key(SEED, "dot_x", 0))
+    t0 = time.perf_counter()
+    xs = devgen.gen_f32((n,), SEED, "dot_x", 0, device=dev).cpu().numpy()
+    for label, lo, hi, step in (("first", 0, k, 1), ("last", n - k, n, 1),
+                                ("every 512th", 0, n, n // k)):
+        want = drawops.replay_np("f32", ka, kb, lo, hi, step=step)
+        chk.record(np.array_equal(xs[lo:hi:step].view(np.uint32), want.view(np.uint32)),
+                   f"draw gen_f32 dot_x ({n},), the {label} {k} elements: bits equal to the "
+                   f"numpy replay")
+    if host.available():
+        m = host.master_f64(0, n, ka, kb).astype(np.float32)
+        chk.record(np.array_equal(xs.view(np.uint32), m.view(np.uint32)),
+                   f"draw gen_f32 dot_x ({n},), all {n} elements: bits equal to fl32 of the "
+                   f"native master replay ({host.describe()})")
+        del m
+    else:
+        chk.record(False, f"native master replay unavailable: {host.describe()}")
+    del xs
+    log(f"draw replays: {time.perf_counter() - t0:.1f} s")
+
+    start, m = 2**32 - 2**23, 2**24
+    max_abs = 0.0
+    for mode, lo, hi in (("f32", -1.0, 1.0), ("df64", -1.0, 1.0), ("uniform", 0.0, 1.0),
+                         ("uniform", threefry.NORMAL_LO, 1.0)):
+        got = drawops.draw(mode, ka, kb, (m,), lo, hi, device=dev, start=start)
+        plain = drawops._draw_plain(mode, ka, kb, start, start + m, lo, hi, dev)
+        pairs = list(zip(got, plain)) if mode == "df64" else [(got, plain)]
+        same = all(torch.equal(g.view(torch.int32), p.view(torch.int32)) for g, p in pairs)
+        max_abs = max([max_abs] + [float((g - p).abs().max()) for g, p in pairs])
+        chk.record(same, f"draw kernel {mode} [{lo:.9g}, {hi:g}) elements [{start}, "
+                         f"{start + m}): bits equal to the plain torch version on the card")
+        del got, plain
+    chk.raise_failures()
+
+    def kernel():
+        return drawops.draw("f32", ka, kb, (n,), device=dev)
+
+    def plain():
+        for i0 in range(0, n, threefry.CHUNK):
+            drawops._draw_plain("f32", ka, kb, i0, i0 + threefry.CHUNK, -1.0, 1.0, dev)
+
+    k1 = benchmark_function(kernel)
+    p1 = benchmark_function(plain, iters=3)
+    k2 = benchmark_function(kernel)
+    ms, plain_ms = min(k1, k2), p1
+    torch.cuda.empty_cache()
+    bd = draw_bound(n, 2, 4)
+    log(f"time devgen_draw gen_f32 n={n}: kernel {ms:.4f} ms, {bd['ops'] / ms / 1e9:.1f} "
+        f"int32 ALU Gop/s | plain (torch int64, in {threefry.CHUNK}-element passes) "
+        f"{plain_ms:.4f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}): operations "
+        f"{bd['ops_ms']:.4f} ms ({bd['ops']:.3e} int32 ALU ops over {bd['sms']} SMs x "
+        f"{INT_LANES_PER_SM} lanes x {bd['clock_hz'] / 1e6:.0f} MHz), bytes "
+        f"{bd['bytes_ms']:.4f} ms ({n * 4} B over {PEAK_BYTES:.3g} B/s); "
+        f"{bd['bound_ms'] / ms:.1%} of the bound")
+    return {"name": "devgen_draw", "route": "cuda", "source": "accblas_tpu_torch/csrc/devgen.cu",
+            "replaces": "accblas_tpu/utils/devgen.py:73", "launches": MAIN_DRAWS["launches"],
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": None, "bound_bytes_ms": bd["bytes_ms"],
+            "bound_ops_ms": bd["ops_ms"]}
 
 
 def phase_drivers() -> None:
@@ -1117,6 +1275,7 @@ def phase_drivers() -> None:
     from accblas_tpu_torch.bench import dot_benchmark, gemv_benchmark, trsv_benchmark
     from accblas_tpu_torch.native import host
     from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import draw as drawops
     from accblas_tpu_torch.ops import gemv as gemvops
     from accblas_tpu_torch.ops import trsv as trsvops
 
@@ -1125,7 +1284,7 @@ def phase_drivers() -> None:
     log(f"drivers: host data from {host.describe()}")
     bad = _check_draws(dev)
     modules = {"dot": dot_benchmark, "gemv": gemv_benchmark, "trsv": trsv_benchmark}
-    dotops.launches = gemvops.launches = 0
+    dotops.launches = gemvops.launches = drawops.launches = 0
     trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
     t_phase = time.perf_counter()
     for driver, mode, argv in DRIVER_RUNS:
@@ -1143,6 +1302,11 @@ def phase_drivers() -> None:
             cells = row.split(";")
             size = int(cells[0])
             jax_row = _v5e_row(f"{driver}_error.csv", size) if mode == "error" else {}
+            same_data = mode == "error" and COMPARABLE.get(driver, lambda _: False)(size)
+            if mode == "error" and driver in COMPARABLE:
+                log(f"v5e {driver} error at {size}: the drawn shape "
+                    + ("is the CSV run's: the data-set columns are held to the v5e cells"
+                       if same_data else "is not the CSV run's: ratios for reading only"))
             for col, cell in zip(header[1:], cells[1:]):
                 v = float(cell)
                 if mode != "error":
@@ -1150,11 +1314,20 @@ def phase_drivers() -> None:
                 else:
                     b = _error_bound(driver, col, jax_row)
                     ok, what = v <= b, f"error above {b:.3e}"  # NaN fails too
+                    if col in jax_row:
+                        ratio = v / jax_row[col]
+                        log(f"ratio {driver} {col} at {size}: {v:.10e} / v5e "
+                            f"{jax_row[col]:.10e} = {ratio:.8f}")
+                        tol = (DATASET_TOL if col.endswith(DATASET_COLS) else
+                               NARROW_TOL.get(driver) if col.endswith(NARROW_COLS) else None)
+                        if same_data and tol is not None and ok:
+                            ok = abs(ratio - 1) <= tol
+                            what = f"{ratio:.8f} x the v5e cell, not within {tol:g}"
                 if not ok:
                     bad.append(f"{driver} {mode} {col} at {size}: {cell} ({what})")
     launches = {"dot": dotops.launches, "gemv": gemvops.launches,
                 "trsv_leaf_diag": trsvops.leaf_diag_launches,
-                "trsv_sweep": trsvops.sweep_launches}
+                "trsv_sweep": trsvops.sweep_launches, "devgen_draw": drawops.launches}
     log(f"drivers launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s")
     bad += [f"the drivers never launched {k}" for k, v in launches.items() if v < 1]
     if bad:
@@ -1453,6 +1626,9 @@ def phase_solvers() -> None:
             else:
                 b = 4 * v5e[col]
                 ok, what = v <= b, f"above 4 x the v5e cell, {b:.3e}"
+                # the JAX driver's system, drawn bit for bit: read beside the v5e cell
+                log(f"ratio solvers {col} at {size}: {v:.10e} / v5e {v5e[col]:.10e} = "
+                    f"{v / v5e[col]:.8f}")
             if not ok:
                 bad.append(f"solvers {col} at {size}: {cell} ({what})")
     bad += solvers_checks(dev)
@@ -1506,11 +1682,9 @@ def _main_operands(dev):
         "ab": devgen.gen_f32((N_GEMV, N_GEMV), SEED, "gemv_a", device=dev).to(bf),
         "xg": devgen.gen_f32((N_GEMV,), SEED, "gemv_x", device=dev).to(bf),
         "rg": devgen.gen_f32((N_GEMV,), SEED, "gemv_res", device=dev),
-        # bench.py's TRSV operand: unit upper, uniform(-1, 1)/n, b = ones
-        "at": devgen.gen_f32((N_TRSV, N_TRSV), SEED, "trsv_a", device=dev).mul_(1.0 / N_TRSV),
-        "bt": torch.ones(N_TRSV, device=dev),
         "bm": devgen.gen_f32((N_TRSV, K_PTRSM), SEED, "trsv_b", device=dev),
     }
+    ops["at"], ops["bt"] = _bench_trsv_operand(dev)
     ops["acg"], ops["bcg"] = sb.spd_system(N_PCG, SEED, dev)
     return ops
 
@@ -1866,6 +2040,7 @@ def main() -> int:
     _run("trsv checks", phase_trsv_checks)
     kernels = _run("dot/gemv main path", phase_main)
     kernels += _run("trsv main path", phase_main_trsv)
+    kernels.append(_run("draws", phase_draws))
     _run("drivers", phase_drivers)
     _run("trsm routes", phase_trsm_routes)
     _run("solvers", phase_solvers)

@@ -64,6 +64,22 @@ def test_dot_driver_error_mode(capsys):
     assert vals["DOT df64 oracle (device)"] < 1e-12
 
 
+def test_dot_driver_reproduces_the_v5e_row(capsys):
+    """The port draws the JAX package's data, so the data-set cells of the
+    DOT error CSV (the df64 tiers over bf16 and f32 storage, whose error is
+    the storage rounding's) reproduce the committed v5e row at n = 16384
+    over the reference's 10 randomizations: a different draw moves them by
+    10-30%."""
+    header, rows, _ = _run_main(dot_benchmark, ["--error", "--size=16384", "--sweep=single"],
+                                capsys)
+    got = _vals(header, rows[0])
+    with open(RESULTS / "dot_error.csv") as f:
+        lines = [ln.strip().split(";") for ln in f if ln.strip()]
+    v5e = next(dict(zip(lines[0][1:], map(float, r[1:]))) for r in lines[1:] if r[0] == "16384")
+    for col in ("DOT Acc<df64,bf16>", "DOT Acc<df64,f32> precise"):
+        assert abs(got[col] / v5e[col] - 1) <= 1e-3, (col, got[col], v5e[col])
+
+
 def test_gemv_driver_error_mode(capsys):
     header, rows, _ = _run_main(gemv_benchmark, ["--error", "--size=512", "--sweep=single"],
                                 capsys)
@@ -245,6 +261,28 @@ def test_drivers_run_as_modules(tmp_path):
         cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines()[0] == ";".join(_jax_header("gemv_error.csv"))
+
+
+@pytest.mark.parametrize("seed,n", [(42, 96), (7, 33)])
+def test_solvers_system_draws_equal_jax(seed, n):
+    """The solver driver's C and b are the JAX driver's bits
+    (accblas_tpu/bench/solvers_benchmark.py ``_spd_device``), and A is
+    Cᵀ C / n + 0.01 I from them."""
+    import jax
+    import jax.numpy as jnp
+
+    ku, kb = jax.random.split(jax.random.PRNGKey(seed))
+    c, b = solvers_benchmark.spd_draws(n, seed, "cpu")
+    np.testing.assert_array_equal(
+        c.numpy().view(np.uint32),
+        np.asarray(jax.random.uniform(ku, (n, n), jnp.float32, -1.0, 1.0)).view(np.uint32))
+    np.testing.assert_array_equal(
+        b.numpy().view(np.uint32),
+        np.asarray(jax.random.uniform(kb, (n,), jnp.float32, -1.0, 1.0)).view(np.uint32))
+    a, b2 = solvers_benchmark.spd_system(n, seed, "cpu")
+    assert torch.equal(b2, b)
+    want = (c.double().T @ c.double() / n).numpy() + 0.01 * np.eye(n)
+    assert np.max(np.abs(a.double().numpy() - want)) < 1e-5
 
 
 def test_solvers_driver_cpu(capsys, monkeypatch):

@@ -1,21 +1,28 @@
-"""The port's on-device data generation (accblas_tpu_torch.utils.devgen),
-mirroring tests/test_devgen.py: the draw in torch int64 equals its numpy
-replay bit for bit, the f32 copy is the rounded fp64 master, and the df64
-split carries the master. The draw is the port's own (splitmix64, not
-threefry), so the values differ from the JAX package's; the master's
-construction and its statistics are the same."""
+"""The port's on-device data generation (accblas_tpu_torch.utils.devgen)
+against the JAX package's (accblas_tpu.utils.devgen), mirroring
+tests/test_devgen.py: for the same (shape, seed, role, r) the port's
+gen_f32, split_df64 (hi and lo), replay_f32 and master_f64 are the JAX
+package's bits; the f32 copy is the rounded fp64 master, and the df64 split
+carries the master."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from accblas_tpu_torch.utils import devgen, prng
+from accblas_tpu.utils import devgen as jdevgen
+from accblas_tpu_torch.utils import devgen, threefry
 
 torch.set_num_threads(1)
 
 
 def _gen(shape, seed=42, role="dot_x", r=0):
     return devgen.gen_f32(shape, seed, role, r, device="cpu").numpy()
+
+
+def _u32(a) -> np.ndarray:
+    return np.asarray(a).view(np.uint32)
 
 
 def test_f32_copy_is_rounded_master():
@@ -26,9 +33,9 @@ def test_f32_copy_is_rounded_master():
 
 @pytest.mark.parametrize("shape,chunk", [((5000,), 1024), ((37, 53), 100), ((3, 4, 5), 7)])
 def test_draw_equals_numpy_replay_bit_for_bit(shape, chunk, monkeypatch):
-    """The torch int64 draw (chunked, any shape) against the numpy uint64
+    """The torch int64 draw (chunked, any shape) against the numpy uint32
     replay, whole and in ranges that straddle chunk boundaries."""
-    monkeypatch.setattr(devgen, "CHUNK", chunk)
+    monkeypatch.setattr(threefry, "CHUNK", chunk)
     g = _gen(shape, seed=7, role="gemv_a", r=3).reshape(-1)
     want = devgen.replay_f32(shape, 7, "gemv_a", 3)
     np.testing.assert_array_equal(g.view(np.uint32), want.view(np.uint32))
@@ -39,16 +46,45 @@ def test_draw_equals_numpy_replay_bit_for_bit(shape, chunk, monkeypatch):
             g[lo:hi].view(np.uint32))
 
 
-def test_draw_keys_wrap_like_uint64():
-    """Seeds at the top of the uint64 range, and the round offsets, wrap mod
-    2^64 in int64 exactly as in the numpy replay; the stream is splitmix64
-    folds of prng's own mixer."""
-    for seed in (0, 2**63 - 1, 2**63, 2**64 - 1):
-        g = devgen.gen_f32((300,), seed, "trsv_b", 5, device="cpu").numpy()
-        np.testing.assert_array_equal(g, devgen.replay_f32((300,), seed, "trsv_b", 5))
-    z = prng._splitmix64(np.array([5], np.uint64))
-    z = prng._splitmix64(z ^ np.uint64(devgen.ROLES["trsv_b"]))
-    assert devgen.stream(5, "trsv_b", 0) == int(prng._splitmix64(z ^ np.uint64(0))[0])
+@pytest.mark.parametrize("seed", [0, 7, 42, 2**31 - 1])
+@pytest.mark.parametrize("role", ["dot_x", "sr", "trsv_b", "p4a_a"])
+@pytest.mark.parametrize("r", [0, 1, 9])
+def test_key_equals_jax(seed, role, r):
+    """The key of (seed, role, r), a role id or a CRC32 role, is the JAX
+    package's ``_key``."""
+    want = tuple(int(v) for v in np.asarray(jax.random.key_data(jdevgen._key(seed, role, r))))
+    assert devgen.key(seed, role, r) == want
+
+
+@pytest.mark.parametrize("shape", [(5000,), (64, 128), (3, 7, 11)])
+@pytest.mark.parametrize("role,r", [("dot_y", 1), ("gemv_a", 0), ("a probe role", 2)])
+def test_gen_and_split_equal_jax(shape, role, r):
+    """gen_f32, split_df64 (hi and lo) and replay_f32 against the JAX
+    package's, bit for bit."""
+    want = _u32(jdevgen.gen_f32(shape, 42, role, r))
+    np.testing.assert_array_equal(_u32(_gen(shape, 42, role, r)), want)
+    np.testing.assert_array_equal(_u32(devgen.replay_f32(shape, 42, role, r)),
+                                  want.reshape(-1))
+    jh, jl = jdevgen.split_df64(jnp.zeros(shape, jnp.float32), None, 42, role, r)
+    hi, lo = devgen.split_df64(None, shape, 42, role, r, device="cpu")
+    np.testing.assert_array_equal(_u32(hi.numpy()), _u32(jh))
+    np.testing.assert_array_equal(_u32(lo.numpy()), _u32(jl))
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_master_equals_jax(native, monkeypatch):
+    """master_f64 through the native replay and through numpy (in chunks)
+    against the JAX package's master, bit for bit."""
+    if native:
+        from accblas_tpu_torch.native import host
+
+        if not host.available():
+            pytest.skip(f"native library unavailable: {host.describe()}")
+    else:
+        monkeypatch.setenv("ACCBLAS_NO_NATIVE", "1")
+        monkeypatch.setattr(threefry, "CHUNK", 1000)
+    want = jdevgen.master_f64((33, 101), 9, "gemv_a", 2)
+    np.testing.assert_array_equal(devgen.master_f64((33, 101), 9, "gemv_a", 2), want)
 
 
 def test_master_distribution_and_entropy():
@@ -119,11 +155,3 @@ def test_gen_f32_runs_on_the_card_unless_asked():
         devgen.gen_f32((16,))
     with pytest.raises((RuntimeError, AssertionError)):
         devgen.split_df64(None, (16,))
-
-
-def test_generator_streams():
-    g1 = devgen.generator(42, "sr", 0, 0, "cpu")
-    g2 = devgen.generator(42, "sr", 0, 0, "cpu")
-    g3 = devgen.generator(42, "sr", 0, 1, "cpu")
-    u1, u2, u3 = (torch.rand(64, generator=g) for g in (g1, g2, g3))
-    assert torch.equal(u1, u2) and not torch.equal(u1, u3)

@@ -1,16 +1,18 @@
 """The port's native host library (accblas_tpu_torch.native.host) against
 its numpy paths and the JAX package's, mirroring tests/test_native.py:
-generation is bit-identical, the long-double reductions agree with the fp64
-tree reduce to fp64 precision."""
+generation is bit-identical (the threefry master too, against the JAX
+package's), the long-double reductions agree with the fp64 tree reduce to
+fp64 precision."""
 
 import ml_dtypes
 import numpy as np
 import pytest
 
+from accblas_tpu.utils import devgen as jdevgen
 from accblas_tpu.utils import matrix as jmatrix
 from accblas_tpu_torch.native import host as native
 from accblas_tpu_torch.ops._build import BUILD_DIR
-from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx
+from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx, threefry
 from accblas_tpu_torch.utils.compare import tree_reduce
 
 
@@ -32,14 +34,25 @@ def test_gen_mtx_bit_identical(lib, monkeypatch):
 
 def test_master_f64_bit_identical(lib, monkeypatch):
     """The native replay of devgen's master, against the numpy one, across
-    chunk boundaries of the numpy path."""
-    monkeypatch.setattr(devgen, "CHUNK", 1000)
+    chunk boundaries of the numpy path, and against the JAX package's."""
+    monkeypatch.setattr(threefry, "CHUNK", 1000)
     got = devgen.master_f64((33, 101), 9, "gemv_a", 2)
-    key = devgen.stream(9, "gemv_a", 2)
-    np.testing.assert_array_equal(lib.master_f64(0, 33 * 101, key), got.reshape(-1))
-    np.testing.assert_array_equal(lib.master_f64(1500, 7, key), got.reshape(-1)[1500:1507])
+    ka, kb = threefry.split(devgen.key(9, "gemv_a", 2))
+    np.testing.assert_array_equal(lib.master_f64(0, 33 * 101, ka, kb), got.reshape(-1))
+    np.testing.assert_array_equal(lib.master_f64(1500, 7, ka, kb), got.reshape(-1)[1500:1507])
+    np.testing.assert_array_equal(got, jdevgen.master_f64((33, 101), 9, "gemv_a", 2))
     monkeypatch.setenv("ACCBLAS_NO_NATIVE", "1")
     np.testing.assert_array_equal(devgen.master_f64((33, 101), 9, "gemv_a", 2), got)
+
+
+def test_master_f64_carries_counters_past_2_32(lib):
+    """Flat ranges that cross 2^32 (a master of 2^32 elements and more,
+    such as a 65536^2 draw): the native replay against the numpy one."""
+    ka, kb = threefry.split(devgen.key(3, "gemv_a", 0))
+    start = 2**32 - 4096
+    a = threefry.uniform_np(ka, start, start + 8192, -1.0, 1.0).astype(np.float64)
+    b = threefry.uniform_np(kb, start, start + 8192, -1.0, 1.0).astype(np.float64)
+    np.testing.assert_array_equal(lib.master_f64(start, 8192, ka, kb), a + 2.0**-24 * b)
 
 
 def test_norms_match_tree_reduce(lib, rng):

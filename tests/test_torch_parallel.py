@@ -305,7 +305,7 @@ class PortResults:
         calls = [cases[k].call for k in cases] + [c for _, c in extra]
         self._pool = concurrent.futures.ThreadPoolExecutor(1)
         self._future = self._pool.submit(launch.run, launch.apply, RANKS, calls, "cpu",
-                                         timeout=300)
+                                         device="cpu", timeout=300)
 
     def __getitem__(self, name):
         per_rank = self._future.result()

@@ -62,7 +62,8 @@ CALLS = {
 @pytest.fixture(scope="module")
 def counts():
     """{name: Counter of (op, axis) over the call}, every rank's the same."""
-    per_rank = launch.run(launch.apply, 4, list(CALLS.values()), "cpu", timeout=300)
+    per_rank = launch.run(launch.apply, 4, list(CALLS.values()), "cpu", device="cpu",
+                          timeout=300)
     out = {}
     for i, name in enumerate(CALLS):
         seen = [r[i]["counts"] for r in per_rank]
@@ -127,3 +128,12 @@ def test_pcg_collective_discipline(counts, ar):
     else:
         assert _ops(c, "all_reduce") == 0
         assert c == {("all_gather", "cols"): iters + dots, **reshard}
+
+
+def test_run_without_a_device_asks_for_the_card():
+    """launch.run and launch.apply run on the cards unless the caller asks
+    for the CPU: with no CUDA device, run raises before it spawns a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run(launch.apply, 2, [])

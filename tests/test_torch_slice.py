@@ -16,10 +16,11 @@ import accblas_tpu
 import accblas_tpu_torch
 from __graft_entry__ import entry
 from accblas_tpu_torch.ops import dot as tdot
+from accblas_tpu_torch.ops import draw as tdraw
 from accblas_tpu_torch.ops import gemv as tgemv
 from accblas_tpu_torch.ops import tri_gemv as ttri
 from accblas_tpu_torch.ops import trsv as ttrsv
-from accblas_tpu_torch.utils import MatrixInfo, gen_mtx, interop, tolerance
+from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx, interop, tolerance
 
 torch.set_num_threads(1)
 
@@ -98,7 +99,8 @@ def test_port_imports_no_jax():
         "accblas_tpu_torch.bench.trsv_benchmark, accblas_tpu_torch.bench.plot, "
         "accblas_tpu_torch.models, accblas_tpu_torch.bench.solvers_benchmark, chip_smoke, "
         "accblas_tpu_torch.parallel, accblas_tpu_torch.parallel.launch, "
-        "accblas_tpu_torch.parallel.dryrun; "
+        "accblas_tpu_torch.parallel.dryrun, accblas_tpu_torch.utils.threefry, "
+        "accblas_tpu_torch.ops.draw; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'accblas_tpu')); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -117,7 +119,7 @@ def test_chip_smoke_refuses_without_a_card():
 
 def _launches():
     return (tdot.launches, tgemv.launches, ttrsv.leaf_diag_launches, ttrsv.sweep_launches,
-            ttri.launches)
+            ttri.launches, tdraw.launches)
 
 
 def test_plain_path_on_cpu_launches_nothing():
@@ -131,4 +133,6 @@ def test_plain_path_on_cpu_launches_nothing():
     accblas_tpu_torch.trsv(t, b)
     accblas_tpu_torch.acc_trsv(t, b, ar="df64")
     ttri.tri_gemv_df64(t, b, b)
+    devgen.gen_f32((64,), device="cpu")
+    devgen.split_df64(None, (64,), device="cpu")
     assert _launches() == before
