@@ -1,0 +1,107 @@
+// The accessor on the device: a Range over a ReducedRowMajor<Ar, St>, the
+// counterpart of accessor/range.py and of the reference's
+// gko::acc::range<reduced_row_major<2, Ar, St>>.
+//
+// A Range is a storage pointer, an extent (rows, cols) and a row stride,
+// passed to a kernel by value. r(i, j) reads storage St and gives the
+// arithmetic type Ar (load_f32, then DF{v, 0} when Ar is DF); r(i, j) = v
+// rounds Ar to St and writes (df_to_f32 first when Ar is DF, then
+// store_f32, round to nearest even). A Range over const St is read-only: a
+// store through it does not compile. r.window(row0, col0, m, n) is the
+// (m, n) window of a parent at (row0, col0), a Range with the parent's row
+// stride: the BlockSpec composition of the JAX package's strided Range.
+//
+// With DF's operators (df64.cuh) a kernel body written once against Ranges
+// runs at f32 or df64 arithmetic over any storage type (csrc/generic.cu).
+#pragma once
+
+#include <type_traits>
+
+#include "accessor.cuh"
+#include "df64.cuh"
+
+namespace accblas {
+
+// arithmetic codes (ops/generic.py AR_CODE)
+enum Arith : int { AR_F32 = 0, AR_DF64 = 1 };
+
+// the two ends of the cast: a float read from storage widened to Ar, and
+// an Ar value rounded to the float that store_f32 then rounds to St
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(DF v) { return df_to_f32(v); }
+
+template <class Ar>
+struct Widen;
+template <>
+struct Widen<float> {
+  __device__ __forceinline__ static float from(float v) { return v; }
+};
+template <>
+struct Widen<DF> {
+  __device__ __forceinline__ static DF from(float v) { return df_from(v); }
+};
+
+// the accessor's (arithmetic, storage) pair; const St for a read-only range
+template <class Ar, class St>
+struct ReducedRowMajor {
+  using arithmetic_type = Ar;
+  using storage_type = St;
+};
+
+template <class Accessor>
+class Range {
+ public:
+  using Ar = typename Accessor::arithmetic_type;
+  using St = typename Accessor::storage_type;
+
+  // one element: converts to Ar on read, rounds to St on assignment
+  class Ref {
+   public:
+    __device__ __forceinline__ explicit Ref(St* p) : p_(p) {}
+    __device__ __forceinline__ operator Ar() const { return Widen<Ar>::from(load_f32(*p_)); }
+    __device__ __forceinline__ const Ref& operator=(Ar v) const {
+      static_assert(!std::is_const_v<St>, "store through a const Range");
+      store_f32(p_, to_float(v));
+      return *this;
+    }
+    // r(i, j) = s(k, l) between two ranges of one type copies the value
+    __device__ __forceinline__ const Ref& operator=(const Ref& v) const {
+      return *this = static_cast<Ar>(v);
+    }
+
+   private:
+    St* p_;
+  };
+
+  __host__ __device__ Range(St* data, int64_t rows, int64_t cols, int64_t stride)
+      : data_(data), rows_(rows), cols_(cols), stride_(stride) {}
+
+  __device__ __forceinline__ Ref operator()(int64_t i, int64_t j) const {
+    return Ref(data_ + i * stride_ + j);
+  }
+  __host__ __device__ int64_t length(int d) const { return d == 0 ? rows_ : cols_; }
+  __host__ __device__ int64_t stride() const { return stride_; }
+  __host__ __device__ Range window(int64_t row0, int64_t col0, int64_t rows,
+                                   int64_t cols) const {
+    return Range(data_ + row0 * stride_ + col0, rows, cols, stride_);
+  }
+
+ private:
+  St* data_;
+  int64_t rows_, cols_, stride_;
+};
+
+template <class Ar, class St>
+using range_t = Range<ReducedRowMajor<Ar, St>>;
+
+// host-side dispatch from an arithmetic code to the type
+template <class F>
+cudaError_t with_arith(int code, F&& f) {
+  switch (code) {
+    case AR_F32: return f(Tag<float>{});
+    case AR_DF64: return f(Tag<DF>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace accblas

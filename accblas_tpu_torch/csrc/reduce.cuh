@@ -29,19 +29,27 @@ __device__ __forceinline__ value_t<TIER> combine(value_t<TIER> a, value_t<TIER> 
   }
 }
 
-__device__ __forceinline__ float shfl_down(float v, int off) {
-  return __shfl_down_sync(0xffffffffu, v, off);
-}
-__device__ __forceinline__ DF shfl_down(DF v, int off) {
-  return DF{shfl_down(v.hi, off), shfl_down(v.lo, off)};
+// `+` as a functor: a fold written once runs on float or DF (df_add) values
+struct Add {
+  template <class T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
+};
+
+// halving fold over the first `width` lanes of a warp (a power of two <= 32):
+// lane t takes op(v_t, v_{t+s}) for s = width/2, ..., 1; valid in lane 0.
+// Every lane of `mask` takes part. No unroll pragma: at a run-time width it
+// made the generic GEMV 25% slower on the H100; at a constant width nvcc
+// unrolls the loop unasked.
+template <class T, class Op>
+__device__ __forceinline__ T warp_fold(T v, int width, Op op, unsigned mask = 0xffffffffu) {
+  for (int s = width / 2; s > 0; s >>= 1) v = op(v, shfl_down(v, s, mask));
+  return v;
 }
 
 // pairwise tree over the 32 lanes of a warp; the result is valid in lane 0
 template <int TIER>
 __device__ __forceinline__ value_t<TIER> warp_reduce(value_t<TIER> v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = combine<TIER>(v, shfl_down(v, off));
-  return v;
+  return warp_fold(v, 32, [](value_t<TIER> a, value_t<TIER> b) { return combine<TIER>(a, b); });
 }
 
 // warp trees, then one tree over the warps' results; valid in thread 0.

@@ -24,18 +24,28 @@ def route(what: str, *tensors: torch.Tensor) -> str:
     return dev.type
 
 
-def pow2_tree_sum(p: torch.Tensor) -> torch.Tensor:
-    """Pairwise sum over the last axis, zero-padded to a power of two, in
-    p's own dtype: every level is one elementwise add, so the order of the
-    sum is spelled out here."""
-    n = p.shape[-1]
-    w = pow2_ceil(max(n, 1))
-    if w != n:
-        p = torch.cat([p, p.new_zeros(tuple(p.shape[:-1]) + (w - n,))], -1)
-    while p.shape[-1] > 1:
-        h = p.shape[-1] // 2
-        p = p[..., :h] + p[..., h:]
-    return p[..., 0]
+def zero_pad(p, axis: int, width: int):
+    """p zero-padded at the end of `axis` to `width`; p is a tensor or a DF
+    (both words padded)."""
+    if not isinstance(p, torch.Tensor):
+        return type(p)(*(zero_pad(t, axis, width) for t in p))
+    shape = list(p.shape)
+    shape[axis] = width - shape[axis]
+    return torch.cat([p, p.new_zeros(shape)], axis) if shape[axis] else p
+
+
+def pow2_tree_sum(p, axis: int = -1):
+    """Pairwise sum over `axis`, zero-padded to a power of two, in p's own
+    dtype: element i meets i + w/2 at every level, and every level is one
+    elementwise add, so the order of the sum is spelled out here. p is a
+    tensor or a DF, which slices both words."""
+    head = (slice(None),) * (axis % p.ndim)
+    w = pow2_ceil(max(p.shape[axis], 1))
+    p = zero_pad(p, axis, w)
+    while w > 1:
+        w //= 2
+        p = p[head + (slice(0, w),)] + p[head + (slice(w, 2 * w),)]
+    return p[head + (0,)]
 
 
 def tri_mask(d: torch.Tensor, lower: bool, unit: bool, *, n=None, offs=None) -> torch.Tensor:

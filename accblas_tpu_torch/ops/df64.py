@@ -80,8 +80,10 @@ class DF(NamedTuple):
     """A double-float value: unevaluated sum hi + lo of two float32 tensors.
 
     ``+``, ``-`` and ``*`` against DF or float32 operands run the df64
-    arithmetic, so code written against accessor ranges works unchanged when
-    the arithmetic type is df64.
+    arithmetic, and indexing and ``reshape`` act on both words, so code
+    written against accessor ranges (a pairwise fold by slices, say) works
+    unchanged when the arithmetic type is df64. ``v[idx]`` is therefore a
+    DF, not a word: take the words by name, or unpack ``hi, lo = v``.
     """
 
     hi: torch.Tensor
@@ -90,6 +92,16 @@ class DF(NamedTuple):
     @property
     def shape(self):
         return self.hi.shape
+
+    @property
+    def ndim(self):
+        return self.hi.dim()
+
+    def __getitem__(self, idx):
+        return DF(self.hi[idx], self.lo[idx])
+
+    def reshape(self, *shape):
+        return DF(self.hi.reshape(*shape), self.lo.reshape(*shape))
 
     def __add__(self, other):
         return df_add(self, df_from(other))

@@ -55,6 +55,24 @@ _ERFINV = tuple(zip(
     (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
      -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)))
 
+# XLA:CPU's float32 log1p. For |x| < sqrt(2) - 1 a Cephes rational
+# approximation x - x²/2 + x³·num(x)/den(x) (coefficients highest first);
+# elsewhere log(1 + x) with XLA's float32 log, Cephes' degree-8 polynomial
+# (Eigen's plog) after a reduction of the argument to [sqrt(1/2), sqrt(2)).
+_LOG1P_SMALL = np.float32(0.41421356237309504880)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRTHF = np.float32(0.707106781186547524)
+
 
 def key(seed: int) -> tuple[int, int]:
     """``jax.random.key(seed)`` with 64-bit types off: the seed taken mod
@@ -147,22 +165,81 @@ def uniform_np(k, start: int, stop: int, lo: float = 0.0, hi: float = 1.0,
     return to_uniform_np(random_bits_np(k, start, stop, step), lo, hi)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 fused multiply-add a·b + c of float32 tensors or Python floats
+    holding float32 values: the product is exact in float64, the sum is
+    rounded there and then to float32."""
+    a, b, c = (v.double() if torch.is_tensor(v) else v for v in (a, b, c))
+    return (a * b + c).float()
+
+
+def _f32(v: float) -> float:
+    return np.float32(v).item()
+
+
+def log_f32(u: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log of u > 0 (Eigen's plog), in float32 steps with
+    its fused multiply-adds: u = m·2^e with m in [sqrt(1/2), sqrt(2)), the
+    polynomial in x = m - 1 in three parts, then the tail x - x²/2 + y +
+    e·log(2) with log(2) split in two."""
+    u = u.clamp_min(float(np.finfo(np.float32).tiny))
+    bits = u.view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = m < float(_SQRTHF)
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.float()
+    x2 = x * x
+    x3 = x2 * x
+    p = [_f32(c) for c in _LOG_P]
+    y = _fma(_fma(p[0], x, p[1]), x, p[2])
+    y1 = _fma(_fma(p[3], x, p[4]), x, p[5])
+    y2 = _fma(_fma(p[6], x, p[7]), x, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _f32(_LOG_Q1))
+    return _fma(e, _f32(_LOG_Q2), _fma(x2, -0.5, x) + y)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log1p (``jax.lax.log1p`` on the CPU), bit for bit:
+    the rational approximation for |x| < sqrt(2) - 1, ``log_f32(1 + x)``
+    elsewhere. ``torch.log1p`` differs from it on 7% of inputs.
+
+    The rational part rounds every multiply and every add on its own, as
+    XLA's HLO does and as XLA:CPU runs it at backend optimisation level 0
+    (the test configuration, tests/conftest.py). At its default level LLVM
+    contracts them into fused multiply-adds, which moves the result by up
+    to 2 ulp; ``log_f32``'s fused multiply-adds are XLA's own at every
+    level."""
+    # XLA:CPU flushes subnormal inputs to zero (with their sign)
+    x = torch.where(x.abs() < float(np.finfo(np.float32).tiny), x * 0.0, x)
+    x2 = x * x
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for a, b in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num = num * x + _f32(a)
+        den = den * x + _f32(b)
+    small = x + (x2 * -0.5 + (x * x2) * (num / den))
+    return torch.where(x.abs() < float(_LOG1P_SMALL), small, log_f32(x + 1.0))
+
+
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 erf_inv in torch ops: with w = -log1p(-x²), the
-    polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, times x. XLA evaluates the
-    polynomial with fused multiply-adds; each is taken here in float64 (the
-    product of two float32 is exact there) and rounded to float32. log1p is
-    torch's: XLA's differs from it by up to 2 ulp, which leaves the result
-    within a few ulp of XLA's. ``torch.erfinv`` is a closer approximation
-    and differs from XLA's by up to ~90 ulp."""
-    w = torch.log1p(x * -x).neg_()
+    """XLA's float32 erf_inv in torch ops, bit for bit (M. Giles' form, as
+    XLA lowers ``chlo.erf_inv``): with w = -log1p(-x²), the polynomial in
+    w - 2.5 (w < 5) or sqrt(w) - 3, times x, every multiply and add rounded
+    on its own (see ``log1p_f32`` for the contraction at XLA:CPU's default
+    level). ``torch.erfinv`` is a closer approximation and differs from
+    XLA's by up to ~90 ulp."""
+    w = log1p_f32(x * -x).neg_()
     central = w < 5.0
-    w = torch.where(central, w - 2.5, w.sqrt() - 3.0).double()
+    # the square root taken in float64 and rounded is the correctly rounded
+    # float32 one; torch's float32 sqrt on the CPU is not always
+    root = w.double().sqrt().float()
+    w = torch.where(central, w - 2.5, root - 3.0)
     p = torch.zeros_like(w)
     for a, b in _ERFINV:
-        c = torch.where(central, np.float32(a).item(), np.float32(b).item()).double()
-        p = c.add_(p.mul_(w)).float().double()
-    return torch.where(x.abs() == 1.0, x * math.inf, p.float() * x)
+        p = p * w + torch.where(central, _f32(a), _f32(b))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
 def normal(k, shape, device="cuda") -> torch.Tensor:

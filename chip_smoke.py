@@ -44,6 +44,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      torch.empty, of the bare ctypes call and of the checks alone; and
      acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
      against float64 and timed beside torch.linalg.solve_triangular;
+  generic: the three kernels of csrc/generic.cu, each written once against
+     the device Range, at f32/f32, bf16 storage with f32 arithmetic and
+     f32 storage with df64 arithmetic, on operands drawn by the draw
+     kernel: generic_axpy over a (16384, 32768) range, generic_gemv at
+     16384^2 and at 16383 x 16385, window_sum over the (8192, 16384) window
+     at (4096, 8192) of a (16384, 32768) parent; each against its plain
+     version on the same inputs (bit for bit) and against float64 on the
+     stored values (AXPY and the df64 results correctly rounded, the f32
+     GEMV and window within the f32 tier's bound), then timed beside its
+     bytes bound, its plain version, acc_gemv for the same GEMV and the
+     PyTorch call for the same f32 function ("time generic_..." lines);
+     the three kernels' counters are reset before the phase and must each
+     have launched;
   6. drivers: the benchmark drivers (accblas_tpu_torch.bench) at their
      default sizes through their main(): dot_benchmark (n = 2^27) and
      gemv_benchmark (16384^2) in speed mode and in error mode (DOT over
@@ -703,7 +716,8 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):
     launches, fails the run. The `top` costliest records are logged.
     Returns ({name: (device ms, launches) per call}, device busy ms per
     call, device records per call: kernels, memsets and copies, of which
-    the profiler may drop a few)."""
+    the profiler may drop a few). A trace with no device record, or none of
+    a counted kernel that launched, is taken again (up to 5 times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,10 +739,15 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in rows if r[3]) / calls
         per_call = sum(r[2] for r in rows if r[3]) / calls
-        if busy > 0:
+        missing = [name for name, n in launched.items()
+                   if n and not any(name in r[0] for r in rows)]
+        if busy > 0 and not missing:
             break
-        # the trace came back without one device record: profile again
-        log(f"profile {label}: no device records in the trace (attempt {attempt + 1})")
+        # the trace came back without one device record, or without any
+        # record of a kernel its wrapper launched: profile again
+        log(f"profile {label}: no device records"
+            + (f" of {', '.join(missing)}" if busy > 0 else "")
+            + f" in the trace (attempt {attempt + 1})")
     if top:
         log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
     for key, ms, count, _ in rows[:top]:
@@ -1062,6 +1081,194 @@ def phase_main_trsv() -> list[dict]:
         entry("tri_gemv", "accblas_tpu_torch/csrc/tri_gemv.cu",
               "accblas_tpu/ops/tri_gemv.py:27", *times["tri_gemv"], None),
     ]
+
+
+# --------------------------------------------------------------------------
+# the generic phase: three kernels written once against the device Range
+# --------------------------------------------------------------------------
+
+# (storage, arithmetic): the JAX tests' three pairings
+GENERIC_PAIRS = (("f32", "f32"), ("bf16", "f32"), ("f32", "df64"))
+GENERIC_SHAPE = (16384, 32768)  # the AXPY range and the window's parent: 2^29 elements
+GENERIC_WINDOW = (4096, 8192, 8192, 16384)  # row0, col0, m, n
+# f32 operations an element: AXPY x*alpha + y; GEMV a product and an add;
+# the window an add. df64 (csrc/df64.cuh, an FMA counted as 2): df_mul_f32
+# 8 + df_add 11; df_mul 10 + df_add 11; df_add 11.
+GENERIC_FLOPS = {"f32": {"axpy": 2, "gemv": 2, "window": 1},
+                 "df64": {"axpy": 19, "gemv": 21, "window": 11}}
+
+
+def device_ms(label: str, call, counted: dict) -> float:
+    """Device ms of one call of `call`: the sum over its counted kernels."""
+    prof, *_ = profile_calls(label, call, counted, top=0)
+    return sum(ms for ms, _ in prof.values())
+
+
+def phase_generic() -> list[dict]:
+    """generic_axpy, generic_gemv and window_sum (csrc/generic.cu, one body
+    each against the device Range) at full width, each at the three
+    pairings, on operands drawn by the draw kernel: against the plain
+    version on the same inputs and against a float64 result of the stored
+    values on the card, then timed beside their bytes bound, the plain
+    version, the port's acc_gemv for the same GEMV, and the one PyTorch call
+    that computes the same f32 function. The launch counters are reset just
+    before the phase's calls and read just after."""
+    from accblas_tpu_torch import acc_gemv, gemv
+    from accblas_tpu_torch.ops import generic as gen
+    from accblas_tpu_torch.utils import devgen, tolerance
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    chk = Checks()
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_x", device=dev)
+    y32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_y", device=dev)
+    gemv_ops = {}
+    for m, n in ((N_GEMV, N_GEMV), (N_GEMV - 1, N_GEMV + 1)):
+        gemv_ops[(m, n)] = (devgen.gen_f32((m, n), SEED, "generic_a", device=dev),
+                            devgen.gen_f32((n,), SEED, "generic_xv", device=dev),
+                            devgen.gen_f32((m,), SEED, "generic_r", device=dev))
+    row0, col0, wm, wn = GENERIC_WINDOW
+    gen.axpy_launches = gen.gemv_launches = gen.window_launches = 0
+    rec = {"axpy": {}, "gemv": {}, "window": {}}
+    max_abs = {"axpy": 0.0, "gemv": 0.0, "window": 0.0}
+
+    # kernel against plain: bit for bit at every pairing and shape, ragged
+    # and f32 ones too (the same operations in the same order, each rounded
+    # on its own on both sides)
+    def compare(kind, label, got, plain, err, bound):
+        same = torch.equal(got, plain)
+        diff = float((got.double() - plain.double()).abs().max())
+        max_abs[kind] = max(max_abs[kind], diff)
+        chk.record(same, f"generic {label}: kernel vs plain "
+                         + ("bit-equal" if same else f"max |diff| {diff:.3e}, not bit-equal"))
+        chk.record(math.isfinite(err) and err <= bound,
+                   f"generic {label}: error against float64 {err:.3e}, bound {bound:.1e}")
+
+    for st, ar in GENERIC_PAIRS:
+        pair = f"{st}/{ar}"
+        x, y = x32.to(dt[st]), y32.to(dt[st])
+        ebytes = x.element_size()
+        flops = GENERIC_FLOPS[ar]
+
+        # ---- AXPY: one rounding an element, so correctly rounded ----
+        label = f"axpy {pair} {GENERIC_SHAPE}"
+        got = gen.axpy(x, y, ar, "f32")
+        torch.cuda.synchronize()
+        ref = 2.0 * x.double() + y.double()
+        err = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+        del ref
+        compare("axpy", label, got, gen._axpy_plain(x, y, ar, "f32", 2.0), err, 2.0**-24)
+        del got
+        nel = x.numel()
+        bnd, by = bound(nel * (2 * ebytes + 4), flops["axpy"] * nel)
+        r = {"ms": benchmark_function(lambda: gen.axpy(x, y, ar, "f32")),
+             "plain_ms": benchmark_function(lambda: gen._axpy_plain(x, y, ar, "f32", 2.0),
+                                            iters=3),
+             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        if pair == "f32/f32":
+            r["library_ms"] = benchmark_function(lambda: torch.add(y, x, alpha=2.0))
+        r["device_ms"] = device_ms(f"generic_axpy {pair}", lambda: gen.axpy(x, y, ar, "f32"),
+                                   {"generic_axpy": lambda: gen.axpy_launches})
+        rec["axpy"][pair] = r
+        torch.cuda.empty_cache()
+
+        # ---- the window sum, through a strided Range of the parent x ----
+        label = f"window_sum {pair} ({wm}, {wn}) at ({row0}, {col0}) of {GENERIC_SHAPE}"
+        got = gen.window_sum(x, row0, col0, wm, wn, ar)
+        w = x[row0:row0 + wm, col0:col0 + wn]
+        w64 = w.double()
+        ref, scale = float(w64.sum()), float(w64.abs().sum())
+        del w64
+        err = abs(float(got) - ref) / scale
+        # f32: the tier bound; df64: one rounding of the exact sum to f32
+        bd_err = tolerance.TOL["f32"] if ar == "f32" else 2.0**-24 * abs(ref) / scale + 1e-12
+        compare("window", label, got, gen._window_sum_plain(x, row0, col0, wm, wn, ar), err,
+                bd_err)
+        nel = wm * wn
+        bnd, by = bound(nel * ebytes + 4, flops["window"] * nel)
+        r = {"ms": benchmark_function(lambda: gen.window_sum(x, row0, col0, wm, wn, ar)),
+             "plain_ms": benchmark_function(
+                 lambda: gen._window_sum_plain(x, row0, col0, wm, wn, ar), iters=3),
+             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        if ar == "f32":  # the same sum: storage type in, f32 arithmetic and result
+            r["library_ms"] = benchmark_function(lambda: w.sum(dtype=torch.float32))
+        # a call launches each of the two kernels once, and counts 2
+        r["device_ms"] = device_ms(f"window_sum {pair}",
+                                   lambda: gen.window_sum(x, row0, col0, wm, wn, ar),
+                                   {k: lambda: gen.window_launches // 2
+                                    for k in ("window_sum_blocks", "window_sum_final")})
+        rec["window"][pair] = r
+        del x, y, w
+        torch.cuda.empty_cache()
+
+        # ---- GEMV at 16384^2 and at a ragged 16383 x 16385 ----
+        for (m, n), (a32, xv32, rv) in gemv_ops.items():
+            a, xv = a32.to(dt[st]), xv32.to(dt[st])
+            label = f"gemv {pair} {m}x{n} alpha=1.5 beta=-0.5"
+            got = gen.gemv_generic(a, xv, rv, ar, "f32")
+            a64, x64 = a.double(), xv.double()
+            ref = 1.5 * torch.mv(a64, x64) - 0.5 * rv.double()
+            scale = 1.5 * torch.mv(a64.abs(), x64.abs()) + 0.5 * rv.double().abs()
+            del a64, x64
+            err = tolerance.gemv_row_err(got[:, 0], ref, scale, torch.float32)
+            bd_err = tolerance.TOL["f32"] if ar == "f32" else tolerance.TOL["df64_precise"]
+            compare("gemv", label, got, gen._gemv_generic_plain(a, xv, rv, ar, "f32", 1.5, -0.5),
+                    err, bd_err)
+            del ref, scale, got
+            if m == n:
+                nbytes = m * n * ebytes + n * ebytes + 2 * m * 4
+                bnd, by = bound(nbytes, flops["gemv"] * m * n)
+                r = {"ms": benchmark_function(lambda: gen.gemv_generic(a, xv, rv, ar, "f32")),
+                     "plain_ms": benchmark_function(
+                         lambda: gen._gemv_generic_plain(a, xv, rv, ar, "f32", 1.5, -0.5),
+                         iters=3),
+                     "bound_ms": bnd, "bound_by": by, "library_ms": None}
+                # the port's own kernel for the same function, the same alpha, beta
+                if pair == "f32/f32":
+                    r["acc_gemv_ms"] = benchmark_function(lambda: gemv(a, xv, rv, 1.5, -0.5))
+                elif pair == "bf16/f32":
+                    r["acc_gemv_ms"] = benchmark_function(
+                        lambda: acc_gemv(a, xv, rv, 1.5, -0.5, ar="f32"))
+                else:
+                    r["acc_gemv_ms"] = benchmark_function(
+                        lambda: acc_gemv(a, xv, rv, 1.5, -0.5, ar="df64", precise=True))
+                if ar == "f32":  # torch.mv: alpha = 1, beta = 0, a cheaper function
+                    r["mv_ms"] = benchmark_function(lambda: torch.mv(a, xv))
+                if pair == "f32/f32":  # the same function in one call
+                    r["library_ms"] = benchmark_function(
+                        lambda: torch.addmv(rv, a, xv, beta=-0.5, alpha=1.5))
+                r["device_ms"] = device_ms(f"generic_gemv {pair}",
+                                           lambda: gen.gemv_generic(a, xv, rv, ar, "f32"),
+                                           {"generic_gemv": lambda: gen.gemv_launches})
+                rec["gemv"][pair] = r
+            del a, xv
+            torch.cuda.empty_cache()
+    del gemv_ops, x32, y32
+    torch.cuda.synchronize()
+    launches = {"generic_axpy": gen.axpy_launches, "generic_gemv": gen.gemv_launches,
+                "window_sum": gen.window_launches}
+    log(f"generic launches: {launches}")
+    chk.record(min(launches.values()) >= 1, f"generic phase launched every kernel: {launches}")
+    names = {"axpy": "generic_axpy", "gemv": "generic_gemv", "window": "window_sum"}
+    for kind, pairs in rec.items():
+        for pair, r in pairs.items():
+            extra = "".join(f" | {what} {r[key]:.4f} ms" for key, what in
+                            (("acc_gemv_ms", "acc_gemv"), ("mv_ms", "torch.mv"))
+                            if key in r)
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"time {names[kind]} {pair}: kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}"
+                f" of the bound), device {r['device_ms']:.4f} ms | plain {r['plain_ms']:.4f} ms"
+                f"{extra} | library {lib} | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"generic phase: {time.perf_counter() - t_phase:.1f} s")
+    chk.raise_failures()
+    replaces = {"axpy": "tests/test_generic_kernel.py:21", "gemv": "tests/test_generic_kernel.py:68",
+                "window": "tests/test_accessor.py:165"}
+    return [{"name": names[kind], "route": "cuda", "source": "accblas_tpu_torch/csrc/generic.cu",
+             "replaces": replaces[kind], "launches": launches[names[kind]],
+             "max_abs_err": max_abs[kind], **rec[kind]["f32/f32"], "pairings": rec[kind]}
+            for kind in ("axpy", "gemv", "window")]
 
 
 # --------------------------------------------------------------------------
@@ -2041,6 +2248,7 @@ def main() -> int:
     kernels = _run("dot/gemv main path", phase_main)
     kernels += _run("trsv main path", phase_main_trsv)
     kernels.append(_run("draws", phase_draws))
+    kernels += _run("generic", phase_generic)
     _run("drivers", phase_drivers)
     _run("trsm routes", phase_trsm_routes)
     _run("solvers", phase_solvers)

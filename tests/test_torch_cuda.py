@@ -16,6 +16,7 @@ import accblas_tpu_torch
 from accblas_tpu_torch.ops import _build
 from accblas_tpu_torch.ops import df64 as tdf
 from accblas_tpu_torch.ops import dot as tdot
+from accblas_tpu_torch.ops import generic as tgen
 from accblas_tpu_torch.ops import gemv as tgemv
 from accblas_tpu_torch.ops import tri_gemv as ttri
 from accblas_tpu_torch.ops import trsv as ttrsv
@@ -805,3 +806,231 @@ def test_sharded_four_ranks_share_one_card(cuda):
     assert np.abs(gv - gref).sum() / np.abs(gref).sum() < 3e-6
     tref = scipy.linalg.solve_triangular(t.astype(np.float64), b)
     assert np.abs(tv - tref).sum() / np.abs(tref).sum() < 3e-5
+
+
+# ---- the generic kernels, written once against the device Range ----
+
+GENERIC_PAIRS = [("f32", "f32"), ("bf16", "f32"), ("f32", "df64")]
+
+
+def _draw(shape, role, st, device, seed=11):
+    return devgen.gen_f32(shape, seed, role, device=device).to(STORAGE[st])
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+@pytest.mark.parametrize("rows,cols", [(1, 1), (64, 256), (37, 301), (3, 70_001)])
+def test_generic_axpy_kernel(cuda, rows, cols, st, ar):
+    """The kernel against its plain version, bit for bit (one rounding per
+    element, the same operations), on dense rows and on a window of a wider
+    parent (row stride 2 cols + 5, at column 3)."""
+    x = _draw((rows, cols), "generic_x", st, cuda)
+    y = _draw((rows, 2 * cols + 5), "generic_y", st, cuda)[:, 3:cols + 3]
+    before = tgen.axpy_launches
+    got = tgen.axpy(x, y, ar, "f32")
+    assert tgen.axpy_launches == before + 1
+    assert torch.equal(got, tgen._axpy_plain(x, y, ar, "f32", 2.0))
+    ref = 2.0 * x.double() + y.double()
+    assert float((got.double() - ref).abs().max()) <= float(ref.abs().max()) * 2**-23
+
+
+@pytest.mark.parametrize("out_st", list(STORAGE))
+def test_generic_axpy_kernel_every_output_storage(cuda, out_st):
+    x = _draw((33, 129), "generic_x", "f32", cuda)
+    y = _draw((33, 129), "generic_y", "f32", cuda)
+    for ar in ("f32", "df64"):
+        got = tgen.axpy(x, y, ar, out_st, alpha=-0.75)
+        assert got.dtype == STORAGE[out_st]
+        assert torch.equal(got.float(), tgen._axpy_plain(x, y, ar, out_st, -0.75).float())
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+@pytest.mark.parametrize("m,n", [(1, 1), (5, 3), (64, 256), (37, 300), (300, 1025),
+                                 (4, 65_537)])
+def test_generic_gemv_kernel(cuda, m, n, st, ar):
+    """_reduce_last's order zero-padded, the same in kernel and plain
+    version: bit for bit at every (m, n), ragged ones too; within the JAX
+    test's bound of float64 on the stored values."""
+    a = _draw((m, n), "generic_a", st, cuda)
+    x = _draw((n,), "generic_xv", st, cuda)
+    r = _draw((m,), "generic_r", "f32", cuda)
+    before = tgen.gemv_launches
+    got = tgen.gemv_generic(a, x, r, ar, "f32")
+    assert tgen.gemv_launches == before + 1
+    assert torch.equal(got, tgen._gemv_generic_plain(a, x, r, ar, "f32", 1.5, -0.5))
+    ref = 1.5 * (a.double() @ x.double()) - 0.5 * r.double()
+    scale = 1.5 * (a.double().abs() @ x.double().abs()) + 0.5 * r.double().abs()
+    bound = 2e-6 if ar == "df64" else 2**-24 * (np.log2(max(n, 2)) + 3)
+    assert float(((got[:, 0].double() - ref).abs() / scale).max()) <= bound
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+@pytest.mark.parametrize("shape,window", [
+    ((16, 256), (8, 128, 8, 128)),
+    ((37, 301), (5, 9, 13, 77)),
+    ((9, 11), (4, 7, 1, 1)),
+    ((1000, 3001), (3, 5, 997, 2990)),
+    ((4096, 4096), (0, 0, 4096, 4096)),
+])
+def test_window_sum_kernel(cuda, shape, window, st, ar):
+    """Block partials and a second launch, in the plain version's order: bit
+    for bit, at odd offsets and strides and a (1, 1) window."""
+    parent = _draw(shape, "generic_w", st, cuda)
+    before = tgen.window_launches
+    got = tgen.window_sum(parent, *window, ar)
+    assert tgen.window_launches == before + 2
+    assert torch.equal(got, tgen._window_sum_plain(parent, *window, ar))
+    row0, col0, m, n = window
+    w = parent[row0:row0 + m, col0:col0 + n].double()
+    depth = np.log2(max(m * n, 2)) + 2
+    bound = 2**-24 * (1 if ar == "df64" else depth) * float(w.abs().sum())
+    assert abs(float(got) - float(w.sum())) <= bound
+
+
+def test_generic_kernels_repeat_their_bits(cuda):
+    a = _draw((512, 4099), "generic_a", "f32", cuda)
+    x = _draw((4099,), "generic_xv", "f32", cuda)
+    r = _draw((512,), "generic_r", "f32", cuda)
+    for ar in ("f32", "df64"):
+        first = tgen.gemv_generic(a, x, r, ar, "f32")
+        w1 = tgen.window_sum(a, 1, 2, 500, 4000, ar)
+        for _ in range(3):
+            assert torch.equal(first, tgen.gemv_generic(a, x, r, ar, "f32"))
+            assert torch.equal(w1, tgen.window_sum(a, 1, 2, 500, 4000, ar))
+
+
+def test_a_const_range_does_not_compile_a_store(cuda, tmp_path):
+    """nvcc refuses a store through a Range over const storage and accepts
+    the same store through a writable one."""
+    import subprocess
+
+    src = """#include "range.cuh"
+using namespace accblas;
+__global__ void k(range_t<DF, %s float> r) { r(0, 0) = r(0, 1) * 2.0f; }
+"""
+    results = {}
+    for const in ("", "const"):
+        f = tmp_path / f"k{const}.cu"
+        f.write_text(src % const)
+        cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-I", str(_build._CSRC), "-c", "-o", str(tmp_path / "k.o"), str(f)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        results[const] = (proc.returncode, proc.stdout + proc.stderr)
+    assert results[""][0] == 0, results[""][1]
+    assert results["const"][0] != 0 and "store through a const Range" in results["const"][1]
+
+
+# ---- the fuzz sweep of tests/test_fuzz.py, kernel against plain version ----
+
+def fuzz_cases():
+    """tests/test_fuzz.py's case lists, drawn from the same seeded Philox
+    stream in the same order (tests/test_torch_fuzz.py checks that they
+    equal the JAX module's): this file imports no JAX."""
+    rng = np.random.Generator(np.random.Philox(20260818))
+    dot = [(int(rng.integers(129, 70_000)), st, ar)
+           for st in ("f32", "bf16") for ar in ("f32", "df64") for _ in range(3)]
+    gemv = [(int(rng.integers(8, 900)), int(rng.integers(9, 900)), st, ar)
+            for st in ("f32", "bf16") for ar in ("f32", "df64") for _ in range(3)]
+    trsv = [(int(rng.integers(64, 1200)), rng.choice(["upper", "lower"]),
+             bool(rng.integers(0, 2)), int(rng.choice([0, 0, 1, 5])), ar)
+            for ar in ("f32", "df64") for _ in range(6)]
+    narrow = [(int(rng.integers(40, 5000)), st) for st in ("f16", "f8e4m3") for _ in range(3)]
+    gemv_narrow = [(int(rng.integers(4, 700)), int(rng.integers(9, 700)), st)
+                   for st in ("f16", "f8e4m3") for _ in range(3)]
+    return {"dot": dot, "gemv": gemv, "trsv": trsv, "dot_narrow": narrow,
+            "gemv_narrow": gemv_narrow}
+
+
+FUZZ = fuzz_cases()
+
+
+@pytest.mark.parametrize("n,st", [c[:2] for c in FUZZ["dot"][::2]] + FUZZ["dot_narrow"])
+@pytest.mark.parametrize("tier", ["f32", "df64_fast", "df64_precise"])
+def test_fuzz_dot_kernel(cuda, n, st, tier):
+    """Kernel and plain version against float64 on the stored values,
+    relative to sum |x y| as tests/test_fuzz.py measures (a random dot can
+    cancel): within the f32 floor 3e-5, or 3e-6 for df64, of it and of each
+    other."""
+    x = devgen.gen_f32((n,), n, "dot_x", device=cuda).to(STORAGE[st])
+    y = devgen.gen_f32((n,), n + 1, "dot_y", device=cuda).to(STORAGE[st])
+    ar, precise = _ar(tier)
+    before = tdot.launches
+    got = float(_value(tdot.acc_dot(x, y, ar, precise=precise)))
+    assert tdot.launches == before + 1
+    hi, lo = tdot._dot_plain(x, y, tier, 0.0)
+    plain = float(hi.double() + lo.double())
+    p = x.double() * y.double()
+    ref, scale = float(p.sum()), float(p.abs().sum())
+    floor = 3e-6 if ar == "df64" else 3e-5
+    assert abs(got - ref) / scale < floor and abs(plain - ref) / scale < floor
+    assert abs(got - plain) / scale < floor
+
+
+@pytest.mark.parametrize("m,n,st", [c[:3] for c in FUZZ["gemv"][::2]] + FUZZ["gemv_narrow"])
+@pytest.mark.parametrize("tier", ["f32", "df64_fast", "df64_precise"])
+def test_fuzz_gemv_kernel(cuda, m, n, st, tier):
+    a = devgen.gen_f32((m, n), m * 1000 + n, "gemv_a", device=cuda).to(STORAGE[st])
+    x = devgen.gen_f32((n,), n, "gemv_x", device=cuda).to(STORAGE[st])
+    r = devgen.gen_f32((m,), m, "gemv_res", device=cuda)
+    _run_gemv(a, x, r, tier, 1.0, 1.0)
+
+
+def _fuzz_trsv_operand(n, uplo, unit, nrhs, device):
+    """tests/test_fuzz.py's operands: the unit solve on gen_mtx / n, the
+    non-unit one on the LU factor of a diagonally dominant matrix."""
+    import scipy.linalg
+
+    if unit:
+        lu = gen_mtx(MatrixInfo(n, n), seed=n) / n
+    else:
+        lu, _ = scipy.linalg.lu_factor(gen_mtx(MatrixInfo(n, n), seed=n) + np.eye(n) * (0.25 * n))
+    b64 = gen_mtx(MatrixInfo(max(nrhs, 1), n), seed=n + 7)
+    b = b64[0] if nrhs == 0 else b64.T
+    return (interop.from_numpy(lu.astype(np.float32), device=device),
+            interop.from_numpy(np.ascontiguousarray(b, np.float32), device=device))
+
+
+@pytest.mark.parametrize("n,uplo,unit,nrhs,ar", FUZZ["trsv"])
+def test_fuzz_trsv_kernel(cuda, n, uplo, unit, nrhs, ar):
+    a, b = _fuzz_trsv_operand(n, str(uplo), unit, nrhs, cuda)
+    _run_trsv(a, b, str(uplo), unit, ar, 3e-5 if ar == "f32" else 5e-6)
+
+
+@pytest.mark.parametrize("resident", [True, False, None])
+@pytest.mark.parametrize("n,uplo,unit,nrhs,ar", [c for c in FUZZ["trsv"] if c[3] == 5][:3])
+def test_fuzz_trsm_every_resident(cuda, n, uplo, unit, nrhs, ar, resident):
+    """The fuzz solves on every route: within the fuzz floor of float64 and,
+    with resident=None, bit for bit the route _route names. df64 has no
+    composed resident mode: resident=True raises."""
+    a, b = _fuzz_trsv_operand(n, str(uplo), unit, nrhs, cuda)
+    fn = accblas_tpu_torch.acc_trsm
+    if ar == "df64" and resident is True:
+        with pytest.raises(ValueError):
+            fn(a, b, str(uplo), unit, ar=ar, resident=True, unstable_ok=True)
+        return
+    got = fn(a, b, str(uplo), unit, ar=ar, resident=resident, unstable_ok=True)
+    assert _rel1(got, _solve64(a, b, str(uplo), unit)) < (3e-5 if ar == "f32" else 5e-6)
+    if resident is None:
+        forced = ttrsv._route(n, b.shape[1], "f32", ar, "cuda") == "composition"
+        assert torch.equal(got, fn(a, b, str(uplo), unit, ar=ar, resident=forced,
+                                   unstable_ok=True))
+
+
+@pytest.mark.parametrize("n,k,route", [
+    (11585, 64, "sweep"),        # n^2 k just under 128 * 8192^2
+    (11586, 64, "composition"),  # just over
+    (16384, 63, "sweep"),        # k just under 64
+    (16384, 64, "composition"),
+])
+def test_route_gate_edges(cuda, n, k, route):
+    """The CUDA gate's edges (ops/trsv.py _route: k >= 64 and n^2 k >=
+    128 * 8192^2): resident=None launches the sweep exactly on the sweep
+    side, and its result equals the forced route's."""
+    assert ttrsv._route(n, k, "f32", "f32", "cuda") == route
+    a = devgen.gen_f32((n, n), 5, "trsv_a", device=cuda).mul_(1.0 / n)
+    bm = devgen.gen_f32((n, k), 5, "trsv_b", device=cuda)
+    before = ttrsv.sweep_launches
+    got = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar="f32", unstable_ok=True)
+    assert (ttrsv.sweep_launches - before == 1) == (route == "sweep")
+    forced = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar="f32",
+                                        resident=route == "composition", unstable_ok=True)
+    assert torch.equal(got, forced)

@@ -11,6 +11,7 @@ import torch
 
 from accblas_tpu_torch.accessor.dtypes import torch_dtype
 from accblas_tpu_torch.ops import _build, common
+from accblas_tpu_torch.ops.df64 import DF, df_zeros
 from accblas_tpu_torch.utils import devgen, interop, matrix, prng, tolerance
 from accblas_tpu_torch.utils.bench import benchmark_function
 
@@ -119,6 +120,21 @@ def test_pow2_tree_sum_is_pairwise():
     assert common.pow2_tree_sum(x) == want
     assert common.pow2_tree_sum(torch.zeros(0)) == 0.0
     assert common.pow2_tree_sum(torch.ones(3, 5)).tolist() == [5.0, 5.0, 5.0]
+
+
+def test_pow2_tree_sum_on_any_axis_and_on_df():
+    """Any axis folds as the last axis of the transpose, and a DF folds both
+    words by df_add in the same zero-padded halving order."""
+    x = torch.randn(5, 3, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(common.pow2_tree_sum(x, 0), common.pow2_tree_sum(x.t()))
+    d = DF(x, x * 2.0**-30)
+    z = df_zeros((3,))
+    # width 8: i meets i + 4, then i + 2, then i + 1
+    want = ((d[0] + d[4]) + (d[2] + z)) + ((d[1] + z) + (d[3] + z))
+    got = common.pow2_tree_sum(d, 0)
+    assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
+    padded = common.zero_pad(d, 0, 8)
+    assert padded.shape == (8, 3) and not padded.hi[5:].any() and not padded.lo[5:].any()
 
 
 def test_route_rejects_mixed_and_unknown_devices():
