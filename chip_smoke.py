@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
      prints ptxas' registers and spills of the GEMV kernel's instantiations
-     and of the draw kernel's;
+     and of the draw and column-sum kernels';
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -57,6 +57,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      PyTorch call for the same f32 function ("time generic_..." lines);
      the three kernels' counters are reset before the phase and must each
      have launched;
+  f8 probe: the port of scripts/probe_r4a.py through its entry point
+     (accblas_tpu_torch.bench.probe_r4a.main at N = 24576: GEMV
+     Acc<f32,f8e4m3> as acc_gemv (A), two torch forms (B, C) and
+     torch._scaled_mm (D), and col_sums (E) at three chunk heights, each
+     checked against float64 first); then col_sums (csrc/colsum.cu, the
+     TPU probe's Pallas convert stream) against its plain version bit for
+     bit and against float64 at 24576^2 (16-byte loads), 1000 x 1003 and
+     24576^2 one byte off alignment (element loads), timed beside its bytes
+     bound, its plain version and a8.sum(0, dtype=float32) where torch's
+     CUDA sum takes f8 ("time col_sums" line), its counter reset before the
+     phase and required to have launched; then the other TPU probes'
+     counterparts at the probes' own shapes, each checked against its plain
+     version and float64 and timed ("time probe" lines): acc_dot
+     Acc<f32,f32> at 2^27 and 2^27 + 17 (probe_dot_ragged.py's draws),
+     acc_gemv Acc<f32,f8e4m3> at 24576^2 with f32 and f8 x (probe_r4e.py),
+     acc_gemv df64 fast and precise at 16384^2 over f32 and bf16
+     (probe_gemv_df64.py's draws);
   6. drivers: the benchmark drivers (accblas_tpu_torch.bench) at their
      default sizes through their main(): dot_benchmark (n = 2^27) and
      gemv_benchmark (16384^2) in speed mode and in error mode (DOT over
@@ -179,9 +196,10 @@ def phase_build():
     paths = _build.build()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
-    for line in _build.build_log("devgen").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas devgen: {line.strip()}")
+    for lib in ("devgen", "colsum"):
+        for line in _build.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {lib}: {line.strip()}")
 
 
 def log_ptxas(kernel: str, text: str):
@@ -1272,6 +1290,204 @@ def phase_generic() -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# the f8 probe: scripts/probe_r4a.py's port, its column-sum kernel, and the
+# other TPU probes' counterparts at their own shapes
+# --------------------------------------------------------------------------
+
+N_PROBE = 24576  # scripts/probe_r4a.py:32
+PROBE_DOT_NS = (2**27, 2**27 + 17)  # scripts/probe_dot_ragged.py:81
+N_PROBE_DF64 = 16384  # scripts/probe_gemv_df64.py:29
+# f32 operations an element of the df64 GEMV (csrc/gemv.cu, an FMA counted
+# as 2): fast, a product and a Kahan step (4 adds); precise, two_prod (3),
+# two_sum (6) and the low word's 2 adds
+PROBE_DF64_FLOPS = {False: 5, True: 11}
+
+
+def _probe_time(label: str, call, plain, lib, nbytes: int, flops: float, counted: dict,
+                beside=None) -> dict:
+    """A kernel's time at a probe's shape: the call and the one PyTorch call
+    `lib` = (name, fn) in turns (call, lib, lib, call), the plain version and
+    the device ms (torch.profiler), beside its bound; `beside` = (name, fn)
+    is another call timed for reference."""
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    order = (call, lib[1], lib[1], call) if lib else (call, call)
+    t = [benchmark_function(f) for f in order]
+    r = {"ms": min(t[0], t[-1]), "library_ms": min(t[1], t[2]) if lib else None,
+         "plain_ms": benchmark_function(plain, iters=3),
+         "device_ms": device_ms(f"probe {label}", call, counted)}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    r["text"] = (f"kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the bound), device "
+                 f"{r['device_ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | library "
+                 + (f"{lib[0]} {r['library_ms']:.4f} ms" if lib else "none"))
+    if beside:
+        r["beside_ms"] = benchmark_function(beside[1])
+        r["text"] += f" | beside: {beside[0]} {r['beside_ms']:.4f} ms"
+    r["text"] += f" | bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+    return r
+
+
+def _library_or_none(name: str, fn):
+    """(name, fn) if one call of fn runs, else None, logging torch's error."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"library {name}: none ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+        return None
+    return name, fn
+
+
+def _colsum_case(chk: Checks, label: str, a, vec: bool) -> float:
+    """col_sums on `a` against its plain version (bit for bit) and against
+    float64 (the (d + 1) 2^-24 bound); returns the largest |kernel - plain|."""
+    from accblas_tpu_torch.bench.probe_r4a import colsum_bound, colsum_err
+    from accblas_tpu_torch.ops import colsum
+
+    got = colsum.col_sums(a)
+    plain = colsum._col_sums_plain(a)
+    same = torch.equal(got, plain)
+    diff = float((got.double() - plain.double()).abs().max())
+    path = "16-byte loads" if vec else "element loads"
+    chk.record(colsum.vector_path(a) == vec, f"col_sums {label}: takes the {path}")
+    chk.record(same, f"col_sums {label} ({path}): kernel vs plain "
+                     + ("bit-equal" if same else f"max |diff| {diff:.3e}, not bit-equal"))
+    a64 = a.double()
+    err = colsum_err(got, a64.sum(0), a64.abs().sum(0))
+    del a64
+    bnd = colsum_bound(a.shape[0], colsum.ROWS_PER_BLOCK)
+    chk.record(math.isfinite(err) and err <= bnd,
+               f"col_sums {label}: error against float64 {err:.3e}, bound {bnd:.3e}")
+    return diff
+
+
+def phase_f8_probe() -> tuple[dict, dict]:
+    """scripts/probe_r4a.py's port at N = 24576 through its main(), then
+    col_sums (csrc/colsum.cu) against its plain version and float64 at
+    24576^2, ragged and misaligned, and timed beside its bound, its plain
+    version and the one PyTorch call; then the other TPU probes'
+    counterparts at their shapes (acc_dot at 2^27 and 2^27 + 17, acc_gemv
+    Acc<f32,f8e4m3> at 24576^2, acc_gemv df64 at 16384^2), each checked and
+    timed. The col_sums counter is reset just before the phase and read just
+    after its col_sums calls. Returns the col_sums record and the probe rows
+    by kernel record name."""
+    from accblas_tpu_torch import acc_dot, acc_gemv
+    from accblas_tpu_torch.bench import probe_r4a
+    from accblas_tpu_torch.ops import colsum
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.utils import devgen, threefry
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    chk = Checks()
+    colsum.launches = 0
+    # ---- (a) the probe, through its entry point ----
+    probe = probe_r4a.main(["--n", str(N_PROBE)])
+
+    # ---- (b) the kernel against its plain version and float64 ----
+    a8, x8, r = probe_r4a.operands(N_PROBE, dev)
+    f8 = probe_r4a.F8
+    max_abs = _colsum_case(chk, f"f8e4m3 {N_PROBE}x{N_PROBE}", a8, vec=True)
+    ragged = devgen.gen_f32((1000, 1003), SEED, "p4a_ragged", device=dev).to(f8)
+    max_abs = max(max_abs, _colsum_case(chk, "f8e4m3 1000x1003", ragged, vec=False))
+    flat = devgen.gen_f32((N_PROBE * N_PROBE + 16,), SEED, "p4a_a", device=dev).to(f8)
+    skew = flat[1:1 + N_PROBE * N_PROBE].view(N_PROBE, N_PROBE)
+    max_abs = max(max_abs, _colsum_case(chk, f"f8e4m3 {N_PROBE}x{N_PROBE} one byte off", skew,
+                                        vec=False))
+    torch.cuda.synchronize()
+
+    # ---- (c) its time beside its bound, its plain version, the library ----
+    lib = _library_or_none("a8.sum(0, dtype=torch.float32)",
+                           lambda: a8.sum(0, dtype=torch.float32))
+    per_call = {k: lambda: colsum.launches // 2 for k in ("colsum_partial", "colsum_fold")}
+    rec = _probe_time(f"col_sums f8e4m3 {N_PROBE}x{N_PROBE}", lambda: colsum.col_sums(a8),
+                      lambda: colsum._col_sums_plain(a8), lib,
+                      N_PROBE * N_PROBE + 4 * N_PROBE, N_PROBE * N_PROBE, per_call)
+    rec["element_loads_ms"] = benchmark_function(lambda: colsum.col_sums(skew))
+    a_ms = probe["A"]["ms"]
+    log(f"time col_sums f8e4m3 {N_PROBE}x{N_PROBE}, launches 2 a call: {rec.pop('text')} | "
+        f"element loads (one byte off) {rec['element_loads_ms']:.4f} ms | acc_gemv (A) "
+        f"{a_ms:.4f} ms ({rec['bound_ms'] / a_ms:.1%} of the same bound)")
+    del flat, skew, ragged
+    torch.cuda.synchronize()
+    launches = colsum.launches
+    log(f"f8 probe col_sums launches: {launches}")
+    chk.record(launches >= 1, f"f8 probe phase launched col_sums: {launches}")
+
+    # ---- the other probes' counterparts, at their own shapes ----
+    rows = {"dot": {}, "gemv": {}, "gemv_fullrow": {}}
+    before = {"dot": dotops.launches, "gemv": gemvops.launches}
+    dot_counted = {k: lambda: dotops.launches for k in ("dot_partials", "dot_finish")}
+    gemv_counted = {"gemv_rows": lambda: gemvops.launches}
+    kx, ky = threefry.split(threefry.key(0))  # scripts/probe_dot_ragged.py:82-84
+    for n in PROBE_DOT_NS:
+        x = threefry.uniform(kx, (n,), -1.0, 1.0, dev)
+        y = threefry.uniform(ky, (n,), -1.0, 1.0, dev)
+        _dot_case(chk, "probe_dot_ragged Acc<f32,f32>", x, y, "f32")
+        rows["dot"][f"acc_dot Acc<f32,f32> n={n}"] = _probe_time(
+            f"acc_dot Acc<f32,f32> n={n}", lambda: acc_dot(x, y, "f32"),
+            lambda: dotops._dot_plain(x, y, "f32", 0.0), ("torch.dot", lambda: torch.dot(x, y)),
+            8 * n + 4, 2 * n, dot_counted)
+        del x, y
+    # scripts/probe_r4e.py:221-225: f32 x (V1, V3) and f8 x (V2), beta = 0
+    x32 = x8.float()
+    _gemv_case(chk, "probe_r4e V1/V3 Acc<f32,f8e4m3 A, f32 x>", a8, x32, r, 1.0, 0.0, "f32")
+    _gemv_case(chk, "probe_r4e V2 Acc<f32,f8e4m3>", a8, x8, r, 1.0, 0.0, "f32")
+    for label, x, lib in (("f32 x", x32, None),
+                          ("f8 x", x8, _library_or_none("torch._scaled_mm k=16",
+                                                        probe_r4a.scaled_mm_form(a8, x8, 16)))):
+        rows["gemv"][f"acc_gemv Acc<f32,f8e4m3> {label} {N_PROBE}^2"] = _probe_time(
+            f"acc_gemv Acc<f32,f8e4m3> {label} {N_PROBE}^2",
+            lambda: acc_gemv(a8, x, r, 1.0, 0.0, ar="f32"),
+            lambda: gemvops._gemv_plain(a8, x, r, 1.0, 0.0, "f32", False), lib,
+            N_PROBE * N_PROBE + N_PROBE * x.element_size() + 4 * N_PROBE,
+            2 * N_PROBE * N_PROBE, gemv_counted)
+    del a8, x8, x32, r
+    torch.cuda.empty_cache()
+    # scripts/probe_gemv_df64.py:101-108: A and x uniform(-1, 1) under the
+    # keys 0 and 1, r = 0, alpha = beta = 1
+    nd = N_PROBE_DF64
+    a32 = threefry.uniform(threefry.key(0), (nd, nd), -1.0, 1.0, dev)
+    xd = threefry.uniform(threefry.key(1), (nd,), -1.0, 1.0, dev)
+    r0 = torch.zeros(nd, device=dev)
+    for st, st_name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        a, x = a32.to(st), xd.to(st)
+        es = a.element_size()
+        for precise in (False, True):
+            name = f"Acc<df64,{st_name}> {'precise' if precise else 'fast'} {nd}^2"
+            _gemv_case(chk, f"probe_gemv_df64 {name}", a, x, r0, 1.0, 1.0, "df64",
+                       precise=precise)
+            rows["gemv_fullrow"][f"acc_gemv {name}"] = _probe_time(
+                f"acc_gemv {name}",
+                lambda: acc_gemv(a, x, r0, 1.0, 1.0, ar="df64", precise=precise),
+                lambda: gemvops._gemv_plain(a, x, r0, 1.0, 1.0,
+                                            "df64_precise" if precise else "df64_fast", False),
+                None, nd * nd * es + nd * es + 8 * nd, PROBE_DF64_FLOPS[precise] * nd * nd,
+                gemv_counted,
+                beside=("torch.mv f32", lambda: torch.mv(a32, xd)) if es == 4 else None)
+        del a, x
+    del a32, xd
+    torch.cuda.synchronize()
+    for label, r in ((label, r) for group in rows.values() for label, r in group.items()):
+        log(f"time probe {label}: {r.pop('text')}")
+    probe_launches = {"dot": dotops.launches - before["dot"],
+                      "gemv": gemvops.launches - before["gemv"]}
+    log(f"f8 probe phase: the probes' counterparts launched {probe_launches}")
+    chk.record(min(probe_launches.values()) >= 1,
+               f"the probes' counterparts launched DOT and GEMV: {probe_launches}")
+    log(f"f8 probe phase: {time.perf_counter() - t_phase:.1f} s")
+    chk.raise_failures()
+    record = {"name": "col_sums", "route": "cuda", "source": "accblas_tpu_torch/csrc/colsum.cu",
+              "replaces": "scripts/probe_r4a.py:93", "launches": launches,
+              "max_abs_err": max_abs, **rec,
+              "probe": {k: {f: v for f, v in res.items() if f != "out"}
+                        for k, res in probe.items() if res is not None}}
+    return record, rows
+
+
+# --------------------------------------------------------------------------
 # phase 6: the benchmark drivers at their default sizes
 # --------------------------------------------------------------------------
 
@@ -2249,6 +2465,11 @@ def main() -> int:
     kernels += _run("trsv main path", phase_main_trsv)
     kernels.append(_run("draws", phase_draws))
     kernels += _run("generic", phase_generic)
+    col_sums, probe_rows = _run("f8 probe", phase_f8_probe)
+    for k in kernels:  # the probes' counterparts beside their kernels' records
+        if k["name"] in probe_rows:
+            k["probe_rows"] = probe_rows[k["name"]]
+    kernels.append(col_sums)
     _run("drivers", phase_drivers)
     _run("trsm routes", phase_trsm_routes)
     _run("solvers", phase_solvers)

@@ -14,6 +14,7 @@ import torch
 
 import accblas_tpu_torch
 from accblas_tpu_torch.ops import _build
+from accblas_tpu_torch.ops import colsum as tcol
 from accblas_tpu_torch.ops import df64 as tdf
 from accblas_tpu_torch.ops import dot as tdot
 from accblas_tpu_torch.ops import generic as tgen
@@ -1034,3 +1035,62 @@ def test_route_gate_edges(cuda, n, k, route):
     forced = accblas_tpu_torch.acc_trsm(a, bm, "upper", True, ar="f32",
                                         resident=route == "composition", unstable_ok=True)
     assert torch.equal(got, forced)
+
+
+# ---- the column sums (csrc/colsum.cu), the f8 probe's convert stream ----
+
+COLSUM_SHAPES = [(1, 1), (1, 16), (5, 48), (300, 1024), (257, 4097), (4097, 4112), (4097, 4113)]
+
+
+def _colsum_operand(m, n, st, offset, device):
+    """An (m, n) contiguous matrix of storage st whose base sits `offset`
+    elements past the start of a flat draw (16-byte aligned at offset 0)."""
+    flat = _draw((m * n + 1,), "colsum_a", st, device)
+    return flat[offset:offset + m * n].view(m, n)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,n", COLSUM_SHAPES)
+@pytest.mark.parametrize("st", list(STORAGE))
+def test_colsum_kernel(cuda, st, m, n, offset):
+    """Both instantiations (16-byte loads; element loads where a row is not
+    16-byte aligned) against the plain version bit for bit, at the default
+    chunk and at 3 and 1024 rows, and against float64 within (d + 1) 2^-24
+    of the column's sum of magnitudes."""
+    from accblas_tpu_torch.bench.probe_r4a import colsum_bound
+
+    a = _colsum_operand(m, n, st, offset, cuda)
+    es = a.element_size()
+    assert tcol.vector_path(a) == (offset == 0 and n * es % 16 == 0)
+    a64 = a.double()
+    ref, scale = a64.sum(0), a64.abs().sum(0).clamp_min(1e-300)
+    for rows in (None, 3, 1024):
+        before = tcol.launches
+        got = tcol.col_sums(a, rows)
+        assert tcol.launches == before + 2
+        assert got.shape == (1, n) and got.dtype == torch.float32
+        assert torch.equal(got, tcol._col_sums_plain(a, rows))
+        err = float(((got.double()[0] - ref).abs() / scale).max())
+        assert err <= colsum_bound(m, rows or tcol.ROWS_PER_BLOCK), (rows, err)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_colsum_kernel_repeats_its_bits(cuda, offset):
+    a = _colsum_operand(3000, 2048, "f32", offset, cuda)
+    first = tcol.col_sums(a)
+    for _ in range(20):
+        assert torch.equal(first, tcol.col_sums(a))
+    torch.cuda.synchronize()
+
+
+def test_colsum_kernel_refuses_what_it_does_not_take(cuda):
+    a = _draw((64, 48), "colsum_a", "f8e4m3", cuda)
+    before = tcol.launches
+    for bad in (a.t(), a[:, :40], a[::2]):
+        with pytest.raises(ValueError, match="contiguous"):
+            tcol.col_sums(bad)
+    with pytest.raises(ValueError):
+        tcol.col_sums(a.double())
+    assert tcol.launches == before
+    assert torch.equal(tcol.col_sums(a[:0]), torch.zeros(1, 48, device=cuda))
+    assert tcol.launches == before
