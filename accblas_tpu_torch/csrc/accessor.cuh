@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace accblas {
@@ -94,6 +95,24 @@ struct alignas(sizeof(T) * V) Pack {
 template <class T, int V>
 __device__ __forceinline__ Pack<T, V> load_pack(const T* p) {
   return *reinterpret_cast<const Pack<T, V>*>(p);
+}
+
+// the same read with no L1 line allocated, for data read once, so that it
+// does not evict data read again (a 16-byte pack; a narrower one as
+// load_pack)
+template <class T, int V>
+__device__ __forceinline__ Pack<T, V> load_pack_stream(const T* p) {
+  if constexpr (sizeof(Pack<T, V>) == 16) {
+    uint4 w;
+    asm("ld.global.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(w.x), "=r"(w.y), "=r"(w.z), "=r"(w.w)
+        : "l"(p));
+    Pack<T, V> pack;
+    memcpy(&pack, &w, sizeof(pack));
+    return pack;
+  } else {
+    return load_pack<T, V>(p);
+  }
 }
 
 // elements per vector step: 16 bytes of the wider of two operands

@@ -10,21 +10,39 @@
 //   window_sum     tests/test_accessor.py:165 (the strided-window sum)
 // The TPU kernels hold whole operands in VMEM and fold in one grid step. On
 // the H100 the least time of all three is their bytes (each operand read
-// once; df64's ~20 flops an element need less). These are the simple
-// forms: scalar loads, neighbouring threads on neighbouring columns, sums
-// in a fixed order so that every run gives the same bits. They reach
-// 30-85% of the bytes bound (PERF.md): the GEMV's order scatters a lane's
-// reads over its row, where csrc/gemv.cu streams 16-byte loads.
+// once; df64's ~20 flops an element need less). Every sum runs in a fixed
+// order, so that every run gives the same bits; ops/generic.py's plain
+// versions spell out the same orders.
+//
+// AXPY is the simple form: scalar reads, neighbouring threads on
+// neighbouring columns.
+//
+// The GEMV and the window sum read V neighbouring stored values with one
+// aligned access (Range's row.load<V>: 16 bytes of storage, at most 32 bytes
+// of Ar values, so V = 4 for f32, 8 for bf16 and 4 for either under df64),
+// and keep V fold slots a thread. A and the window, read once, go through
+// row.stream<V> (no L1 line), so that A's stream does not evict x. Both
+// load kSteps vector steps before they add one, and fold them in a binary
+// counter sized to the run (kLevelsVec levels: the host checks the depth).
+// The wrappers launch the V = 1 instantiation of the same body (kLevelsOne
+// levels) where an operand's base or row stride is not a multiple of V
+// elements, or where a row is deeper than kLevelsVec holds.
 //
 // The GEMV's sum is _reduce_last's pairwise halving (column j meets j + w/2),
-// zero-padded to the next power of two: lane t of a row's warp folds the
-// columns t + 32k by halving over k (a binary counter fed in bit-reversed k
-// order builds exactly that tree), then the warp folds its lanes by
-// halving over t. The window sum folds the zero-padded (M, N) window, read
-// as (K, B, T) (thread t of block b holds q = kBT + bT + t), over k in each
-// thread, over t in each block, then over the B block sums in a second
-// launch: no atomics. ops/generic.py's plain versions spell out the same
-// orders.
+// zero-padded to the next power of two w. One warp takes a row, and column
+// j = (k * lanes + t) * V + v: lane t keeps V slots, slot v folds its k by
+// halving (a binary counter fed in bit-reversed k order builds exactly that
+// tree), then the warp halves over t with V shuffles a level, then the lane
+// halves over v. The high bits of j go first: that is the halving tree.
+//
+// The window sum folds the zero-padded (M, N) window read flat as (K, B, T)
+// (flat index q = kBT + bT + t), halving over k, then t, then b. Thread
+// `thread` of block b holds t = thread * V + v as slot v: its slots fold
+// over k, the block halves over its threads, then each thread over its
+// slots. Each block stores its sum; the last block to finish (a ticket
+// counter in a scratch buffer, after __threadfence) folds the B block sums
+// by halving over b, and its ticket resets the counter for the next call on
+// the stream. One launch, no atomics on the values.
 
 #include "range.cuh"
 #include "reduce.cuh"
@@ -32,97 +50,142 @@
 namespace accblas {
 namespace {
 
-constexpr int kThreads = 256;      // AXPY, GEMV and window blocks
-constexpr int kRowsPerBlock = kThreads / 32;  // GEMV rows a block, one a warp
-constexpr int kMaxThreads = 1024;  // the window's second launch
-constexpr int kLevels = 20;        // a thread folds at most 2^19 values
-constexpr int kChunkLog2 = 4;      // values a thread loads before it folds them
-constexpr int kChunk = 1 << kChunkLog2;
+constexpr int kThreads = 256;      // AXPY blocks, and T: window threads times V
+constexpr int kGemvWarps = 4;      // GEMV warps a block, one row a warp
+constexpr int kMaxBlocks = 1024;   // window blocks B: the last one folds them
+constexpr int kStepsLog2 = 4;      // vector steps a thread loads before it adds one
+constexpr int kSteps = 1 << kStepsLog2;
+constexpr int kLevelsVec = 8;      // counter levels of the vector instantiations
+constexpr int kLevelsOne = 20;     // and of the V = 1 ones: 2^(L-1) pushes of kSteps
 constexpr int kUnroll = 4;         // AXPY columns a thread has in flight
 
 template <class Ar, class St>
 using in_t = range_t<Ar, const St>;
 
-// bit-reversal of the low `bits` bits of k
-__device__ __forceinline__ int64_t bit_reverse(int64_t k, int bits) {
-  return bits == 0 ? 0 : static_cast<int64_t>(__brev(static_cast<unsigned>(k)) >> (32 - bits));
+// stored values a vector read takes: 16 bytes of storage, at most 32 bytes
+// of Ar values (ops/generic.py vector_width)
+template <class Ar, class St>
+__host__ __device__ constexpr int vec_of() {
+  return 16 / sizeof(St) < 32 / sizeof(Ar) ? 16 / sizeof(St) : 32 / sizeof(Ar);
 }
 
-// a binary counter of partial sums: level l holds the sum of 2^l pushes,
-// an earlier one on the left of each add
-template <class Ar>
+// bit-reversal of the low `bits` bits of k
+__device__ __forceinline__ int bit_reverse(int k, int bits) {
+  return bits == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(k)) >> (32 - bits));
+}
+
+// V binary counters of partial sums that count together: level l of slot v
+// holds the sum of 2^l pushes, an earlier one on the left of each add
+template <class Ar, int V, int L>
 struct Counter {
-  Ar level[kLevels];
+  Ar level[L][V];
   unsigned count = 0;
 
-  __device__ __forceinline__ void push(Ar v) {
+  __device__ __forceinline__ void push(Ar (&v)[V]) {
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
+    for (int l = 0; l < L; ++l) {
       if (!((count >> l) & 1u)) {
-        level[l] = v;
+#pragma unroll
+        for (int s = 0; s < V; ++s) level[l][s] = v[s];
         break;
       }
-      v = level[l] + v;
+#pragma unroll
+      for (int s = 0; s < V; ++s) v[s] = level[l][s] + v[s];
     }
     ++count;
   }
   // after a power-of-two count of pushes, the one full level
-  __device__ __forceinline__ Ar result() const {
-    Ar r{};
+  __device__ __forceinline__ void result(Ar (&out)[V]) const {
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
-      if (count == (1u << l)) r = level[l];
+    for (int s = 0; s < V; ++s) out[s] = Ar{};
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (count == (1u << l)) {
+#pragma unroll
+        for (int s = 0; s < V; ++s) out[s] = level[l][s];
+      }
     }
-    return r;
   }
 };
 
-// the pairwise fold of value(0), ..., value(2^log2_count - 1), as a binary
-// counter fed in that order builds it: kChunk values at a time, loaded
-// together and folded by an unrolled tree (an aligned subtree of the
-// counter's), then pushed as one
-template <class Ar, class F>
-__device__ __forceinline__ Ar pairwise_fold(int log2_count, F value) {
-  Counter<Ar> c;
-  if (log2_count < kChunkLog2) {
-    for (int64_t p = 0; p < (int64_t{1} << log2_count); ++p) c.push(value(p));
-    return c.result();
-  }
-  for (int64_t q = 0; q < (int64_t{1} << (log2_count - kChunkLog2)); ++q) {
-    Ar v[kChunk];
+// slot v of `out` is the pairwise fold of value(0)[v], ...,
+// value(2^log2_count - 1)[v], as a binary counter fed in that order builds
+// it: load(p0, vals) fills the kSteps values p0, p0 + 1, ... at once (loads
+// in flight together), an unrolled tree folds them (an aligned subtree of
+// the counter's; a value past a count below kSteps is never added to one
+// within it), and the counter takes the result
+template <class Ar, int V, int L, class F>
+__device__ __forceinline__ void pairwise_fold(int log2_count, F load, Ar (&out)[V]) {
+  Counter<Ar, V, L> c;
+  const int count = 1 << log2_count;
+  for (int p0 = 0; p0 < count; p0 += kSteps) {
+    Ar vals[kSteps][V];
+    load(p0, vals);
 #pragma unroll
-    for (int r = 0; r < kChunk; ++r) v[r] = value(q * kChunk + r);
+    for (int w = 1; w < kSteps; w <<= 1) {
+      if (w < count) {
 #pragma unroll
-    for (int w = 1; w < kChunk; w <<= 1) {
+        for (int r = 0; r < kSteps; r += 2 * w) {
 #pragma unroll
-      for (int r = 0; r < kChunk; r += 2 * w) v[r] = v[r] + v[r + w];
+          for (int s = 0; s < V; ++s) vals[r][s] = vals[r][s] + vals[r + w][s];
+        }
+      }
     }
-    c.push(v[0]);
+    c.push(vals[0]);
   }
-  return c.result();
+  c.result(out);
 }
 
-// halving fold over the block's threads (blockDim.x a power of two): thread t
-// takes t + s for s = T/2, ..., 1, in shared memory down to one warp, then
-// by shuffles. The result is valid in thread 0. Once a kernel (one static
-// shared buffer).
-template <class Ar>
-__device__ __forceinline__ Ar block_fold(Ar v) {
-  __shared__ Ar sh[kMaxThreads];
+// halving over the first `slots` (a power of two <= V) of a thread's slots:
+// v takes v + w for w = slots/2, ..., 1; the sum is v[0]
+template <class Ar, int V>
+__device__ __forceinline__ Ar slot_fold(Ar (&v)[V], int slots) {
+#pragma unroll
+  for (int w = V / 2; w > 0; w >>= 1) {
+    if (w < slots) {
+#pragma unroll
+      for (int s = 0; s < w; ++s) v[s] = v[s] + v[s + w];
+    }
+  }
+  return v[0];
+}
+
+// halving over the block's threads (blockDim.x a power of two) of each slot:
+// thread t takes t + h for h = n/2, ..., 1, in shared memory (`sh`, V n
+// values) down to one warp, then by shuffles; then over the slots. The sum
+// is valid in thread 0.
+template <class Ar, int V>
+__device__ __forceinline__ Ar block_fold(Ar (&v)[V], int slots, Ar* sh) {
   const int t = threadIdx.x;
   const int n = blockDim.x;
-  sh[t] = v;
+#pragma unroll
+  for (int s = 0; s < V; ++s) sh[s * n + t] = v[s];
   __syncthreads();
-  int s = n / 2;
-  for (; s >= 32; s >>= 1) {
-    if (t < s) sh[t] = sh[t] + sh[t + s];
+  int h = n / 2;
+  for (; h >= 32; h >>= 1) {
+    if (t < h) {
+#pragma unroll
+      for (int s = 0; s < V; ++s) sh[s * n + t] = sh[s * n + t] + sh[s * n + t + h];
+    }
     __syncthreads();
   }
   if (t < 32) {
     const unsigned mask = n >= 32 ? 0xffffffffu : (1u << n) - 1u;
-    v = warp_fold(sh[t], 2 * s, Add{}, mask);
+#pragma unroll
+    for (int s = 0; s < V; ++s) v[s] = sh[s * n + t];
+    for (; h > 0; h >>= 1) {
+#pragma unroll
+      for (int s = 0; s < V; ++s) v[s] = v[s] + shfl_down(v[s], h, mask);
+    }
   }
-  return v;
+  return slot_fold(v, slots);
+}
+
+// a block sum another block wrote in this launch: read from L2, never L1
+__device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ DF load_l2(const DF* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  return DF{v.x, v.y};
 }
 
 // o(i, j) = x(i, j) * alpha + y(i, j), grid-stride over rows (y) and columns
@@ -149,49 +212,126 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // o(i, 0) = (sum_j a(i, j) * x(0, j)) * alpha + r(i, 0) * beta, one warp a
-// row: lane t (of `lanes`, a power of two) folds the columns t + k*lanes of
-// the row's zero-padded width lanes << log2_per
-template <class Ar, class SI, class SO>
-__global__ void __launch_bounds__(kThreads)
+// row: lane t (of `lanes`, a power of two) holds columns (k lanes + t) V + v
+// of the row's zero-padded width (2^log2_per lanes V, or `slots` < V when
+// the width is below V)
+template <int V, int L, class Ar, class SI, class SO>
+__global__ void __launch_bounds__(32 * kGemvWarps)
     generic_gemv(in_t<Ar, SI> a, in_t<Ar, SI> x, in_t<Ar, SO> r, range_t<Ar, SO> o,
-                 float alpha, float beta, int lanes, int log2_per) {
-  const int64_t n = a.length(1);
+                 float alpha, float beta, int lanes, int log2_per, int slots) {
+  const int n = static_cast<int>(a.length(1));
   const int lane = threadIdx.x & 31;
-  const int64_t rows_per_grid = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
-  for (int64_t i = blockIdx.x * int64_t{kRowsPerBlock} + (threadIdx.x >> 5); i < a.length(0);
+  const int per = 1 << log2_per;
+  const auto xr = x.row(0);
+  const int64_t rows_per_grid = static_cast<int64_t>(gridDim.x) * kGemvWarps;
+  for (int64_t i = blockIdx.x * int64_t{kGemvWarps} + (threadIdx.x >> 5); i < a.length(0);
        i += rows_per_grid) {
-    const Ar own = pairwise_fold<Ar>(log2_per, [&](int64_t p) {
-      const int64_t j = lane + bit_reverse(p, log2_per) * lanes;
-      return lane < lanes && j < n ? a(i, j) * x(0, j) : Ar{};
-    });
-    const Ar val = warp_fold(own, lanes, Add{});
+    const auto arow = a.row(i);
+    Ar own[V];
+    pairwise_fold<Ar, V, L>(log2_per, [&](int p0, Ar (&v)[kSteps][V]) {
+      // the chunk's steps are k0 + t per / live, t < live: the last one's
+      // columns decide whether every read lies in the row
+      const int live = per < kSteps ? per : kSteps;
+      const int k_last = bit_reverse(p0, log2_per) + per - per / live;
+      if (lane < lanes && (k_last * lanes + lane + 1) * V <= n) {
+        // kSteps vector reads in flight; a step past the count reads a
+        // live step's columns, and the fold never adds it to a live one
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          const int c = (bit_reverse((p0 + s) & (per - 1), log2_per) * lanes + lane) * V;
+          Ar av[V], xv[V];
+          arow.stream(c, av);
+          xr.load(c, xv);
+#pragma unroll
+          for (int u = 0; u < V; ++u) v[s][u] = av[u] * xv[u];
+        }
+      } else {  // the ragged end of a row, or a width below the warp's
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          const int c = (bit_reverse(p0 + s, log2_per) * lanes + lane) * V;
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const int j = c + u;
+            v[s][u] = lane < lanes && p0 + s < per && j < n ? arow(j) * xr(j) : Ar{};
+          }
+        }
+      }
+    }, own);
+    for (int h = lanes / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) own[u] = own[u] + shfl_down(own[u], h);
+    }
+    const Ar val = slot_fold(own, slots);
     if (lane == 0) o(i, 0) = val * alpha + r(i, 0) * beta;
   }
 }
 
-// the window's zero-padded (M, N) = (M, 2^log2_n) elements, flat index
-// q = kBT + bT + t: block b's sum over its (k, t), stored to partial[b]
-template <class Ar, class SI>
+// the sum of the window's zero-padded (M, N) = (M, 2^log2_n) elements read
+// as (K, B, T) = (2^log2_per, gridDim.x, 2^log2_t): block b's sum over its
+// (k, t) to partial[b]; the last block to finish folds the B sums into o,
+// the (1, 1) output range. `ticket` is 0 before the launch and after it.
+template <int V, int L, class Ar, class St>
 __global__ void __launch_bounds__(kThreads)
-    window_sum_blocks(in_t<Ar, SI> w, Ar* partial, int log2_n, int log2_per) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t cols = int64_t{1} << log2_n;
-  const Ar own = pairwise_fold<Ar>(log2_per, [&](int64_t p) {
-    const int64_t q = g + bit_reverse(p, log2_per) * stride;
-    const int64_t i = q >> log2_n, j = q & (cols - 1);
-    return i < w.length(0) && j < w.length(1) ? static_cast<Ar>(w(i, j)) : Ar{};
-  });
-  const Ar v = block_fold(own);
-  if (threadIdx.x == 0) partial[blockIdx.x] = v;
-}
-
-// the B block sums folded by halving over b; o is the (1, 1) output range
-template <class Ar>
-__global__ void __launch_bounds__(kMaxThreads)
-    window_sum_final(const Ar* partial, range_t<Ar, float> o) {
-  const Ar v = block_fold(partial[threadIdx.x]);
-  if (threadIdx.x == 0) o(0, 0) = v;
+    window_sum(in_t<Ar, St> w, Ar* partial, unsigned* ticket, range_t<Ar, float> o,
+               int log2_n, int log2_t, int log2_per, int slots) {
+  __shared__ Ar sh[kMaxBlocks];
+  __shared__ bool last;
+  const int64_t m = w.length(0);
+  const int n = static_cast<int>(w.length(1));
+  const int per = 1 << log2_per;
+  const int64_t bt = static_cast<int64_t>(gridDim.x) << log2_t;
+  const int64_t own_q = (static_cast<int64_t>(blockIdx.x) << log2_t) + threadIdx.x * V;
+  const int64_t col_mask = (int64_t{1} << log2_n) - 1;
+  // a thread's steps read one column (bt a multiple of N) or, where a step
+  // is less than a row, columns at most N - bt past its first
+  const bool cols_in = slots == V && (own_q & col_mask) + (bt < col_mask + 1 ? col_mask + 1 - bt
+                                                                             : 0) + V <= n;
+  Ar own[V];
+  pairwise_fold<Ar, V, L>(log2_per, [&](int p0, Ar (&v)[kSteps][V]) {
+    // the chunk's steps are k0 + t per / live, t < live: the last one has
+    // the last row
+    const int live = per < kSteps ? per : kSteps;
+    const int64_t k_last = bit_reverse(p0, log2_per) + per - per / live;
+    if (cols_in && (k_last * bt + own_q) >> log2_n < m) {
+      // kSteps vector reads in flight, the step's row and column computed
+      // once; a step past the count reads a live step's, never added
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const int64_t q = bit_reverse((p0 + s) & (per - 1), log2_per) * bt + own_q;
+        w.row(q >> log2_n).stream(static_cast<int>(q & col_mask), v[s]);
+      }
+    } else {  // the ragged edge, or slots spanning rows of a narrow window
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int64_t q = bit_reverse(p0 + s, log2_per) * bt + own_q + u;
+          const int64_t i = q >> log2_n, j = q & col_mask;
+          v[s][u] = u < slots && p0 + s < per && i < m && j < n ? static_cast<Ar>(w(i, j))
+                                                                : Ar{};
+        }
+      }
+    }
+  }, own);
+  const Ar sum = block_fold(own, slots, sh);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = sum;
+    __threadfence();
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;  // the last resets it to 0
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll 8
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x) {
+    sh[b] = load_l2(partial + b);
+  }
+  __syncthreads();
+  for (int h = gridDim.x / 2; h > 0; h >>= 1) {
+    for (int b = threadIdx.x; b < h; b += blockDim.x) sh[b] = sh[b] + sh[b + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) o(0, 0) = sh[0];
 }
 
 }  // namespace
@@ -221,11 +361,13 @@ extern "C" int accblas_generic_axpy(const void* x, int64_t sx, const void* y, in
 }
 
 // a: (m, n) of st_in, row stride sa; x: n contiguous of st_in; r, o: m
-// contiguous of st_out; lanes * 2^log2_per = the zero-padded width
+// contiguous of st_out; lanes * 2^log2_per * v = the zero-padded width
+// (`slots` of the v values a lane holds count, fewer than v only below v
+// columns); v = 1, or the pair's vector width with a, sa and x aligned to it
 extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, const void* r,
                                     void* o, int st_in, int st_out, int64_t m, int64_t n,
                                     int ar, float alpha, float beta, int lanes, int log2_per,
-                                    unsigned grid, void* stream) {
+                                    int slots, int v, unsigned grid, void* stream) {
   using namespace accblas;
   return with_arith(ar, [&](auto ta) {
     using Ar = typename decltype(ta)::type;
@@ -237,8 +379,17 @@ extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, co
         in_t<Ar, SI> rx(static_cast<const SI*>(x), 1, n, n);
         in_t<Ar, SO> rr(static_cast<const SO*>(r), m, 1, 1);
         range_t<Ar, SO> ro(static_cast<SO*>(o), m, 1, 1);
-        generic_gemv<Ar, SI, SO><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            ra, rx, rr, ro, alpha, beta, lanes, log2_per);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        constexpr int kV = vec_of<Ar, SI>();
+        if (v == kV) {
+          generic_gemv<kV, kLevelsVec><<<grid, 32 * kGemvWarps, 0, s>>>(
+              ra, rx, rr, ro, alpha, beta, lanes, log2_per, slots);
+        } else if (v == 1) {
+          generic_gemv<1, kLevelsOne><<<grid, 32 * kGemvWarps, 0, s>>>(
+              ra, rx, rr, ro, alpha, beta, lanes, log2_per, slots);
+        } else {
+          return cudaErrorInvalidValue;
+        }
         return cudaGetLastError();
       });
     });
@@ -246,27 +397,39 @@ extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, co
 }
 
 // the (m, n) window at (row0, col0) of a parent of storage st with row
-// stride `stride`; blocks * threads * 2^log2_per = M * 2^log2_n, blocks a
-// power of two <= 1024; partial holds `blocks` values of the arithmetic type
+// stride `stride`, read as (K, B, T) = (2^log2_per, blocks, 2^log2_t) with
+// K B T = M 2^log2_n, blocks a power of two <= 1024; v = 1, or the pair's
+// vector width with the window's base and the stride aligned to it.
+// scratch: 1024 values of the arithmetic type (the block sums), then the
+// ticket counter, 0 before the first call
 extern "C" int accblas_window_sum(const void* parent, int st, int64_t stride, int64_t row0,
                                   int64_t col0, int64_t m, int64_t n, int ar, float* out,
-                                  void* partial, int log2_n, int blocks, int threads,
-                                  int log2_per, void* stream) {
+                                  void* scratch, int log2_n, int blocks, int log2_t,
+                                  int log2_per, int v, void* stream) {
   using namespace accblas;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* ticket =
+      reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + kMaxBlocks * sizeof(DF));
   return with_arith(ar, [&](auto ta) {
     using Ar = typename decltype(ta)::type;
     return with_storage(st, [&](auto ts) {
       using S = typename decltype(ts)::type;
       // the parent's extent does not matter to the window: only its stride
       const in_t<Ar, S> p(static_cast<const S*>(parent), row0 + m, stride, stride);
-      window_sum_blocks<Ar, S><<<blocks, threads, 0, s>>>(p.window(row0, col0, m, n),
-                                                         static_cast<Ar*>(partial), log2_n,
-                                                         log2_per);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      window_sum_final<Ar><<<1, blocks, 0, s>>>(static_cast<const Ar*>(partial),
-                                                range_t<Ar, float>(out, 1, 1, 1));
+      const auto win = p.window(row0, col0, m, n);
+      Ar* partial = static_cast<Ar*>(scratch);
+      const range_t<Ar, float> o(out, 1, 1, 1);
+      const int t = 1 << log2_t;
+      constexpr int kV = vec_of<Ar, S>();
+      if (v == kV) {
+        window_sum<kV, kLevelsVec><<<blocks, t >= kV ? t / kV : 1, 0, s>>>(
+            win, partial, ticket, o, log2_n, log2_t, log2_per, t < kV ? t : kV);
+      } else if (v == 1) {
+        window_sum<1, kLevelsOne><<<blocks, t, 0, s>>>(win, partial, ticket, o, log2_n,
+                                                       log2_t, log2_per, 1);
+      } else {
+        return cudaErrorInvalidValue;
+      }
       return cudaGetLastError();
     });
   });

@@ -11,6 +11,16 @@
 // (m, n) window of a parent at (row0, col0), a Range with the parent's row
 // stride: the BlockSpec composition of the JAX package's strided Range.
 //
+// The port's addition beside Ginkgo's reduced_row_major: r.row(i) takes a
+// row's base once (the one 64-bit product i * stride), so a loop over the
+// row's columns indexes it with 32-bit offsets, and row.load<V>(j, v) reads
+// the V stored values at columns j..j+V-1 as one aligned access (load_pack
+// of accessor.cuh), each widened to Ar as a single read is; row.stream<V>
+// is the same read with no L1 line allocated, for values read once. A
+// vector read needs the address of column j to be a multiple of V elements: for every
+// row, the range's base and its row stride both multiples of V elements.
+// There is no vector store.
+//
 // With DF's operators (df64.cuh) a kernel body written once against Ranges
 // runs at f32 or df64 arithmetic over any storage type (csrc/generic.cu).
 #pragma once
@@ -73,12 +83,41 @@ class Range {
     St* p_;
   };
 
+  // one row, its base taken once: columns are 32-bit offsets from it
+  class Row {
+   public:
+    __device__ __forceinline__ explicit Row(St* p) : p_(p) {}
+    __device__ __forceinline__ Ref operator()(int j) const { return Ref(p_ + j); }
+    // columns j..j+V-1 as one aligned access (j's address a multiple of V
+    // elements), each value widened to Ar
+    template <int V>
+    __device__ __forceinline__ void load(int j, Ar (&v)[V]) const {
+      widen(load_pack<std::remove_const_t<St>, V>(p_ + j), v);
+    }
+    // the same read of values read once: no L1 line allocated
+    template <int V>
+    __device__ __forceinline__ void stream(int j, Ar (&v)[V]) const {
+      widen(load_pack_stream<std::remove_const_t<St>, V>(p_ + j), v);
+    }
+
+   private:
+    template <int V>
+    __device__ __forceinline__ static void widen(const Pack<std::remove_const_t<St>, V>& pack,
+                                                 Ar (&v)[V]) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) v[u] = Widen<Ar>::from(load_f32(pack.v[u]));
+    }
+
+    St* p_;
+  };
+
   __host__ __device__ Range(St* data, int64_t rows, int64_t cols, int64_t stride)
       : data_(data), rows_(rows), cols_(cols), stride_(stride) {}
 
   __device__ __forceinline__ Ref operator()(int64_t i, int64_t j) const {
     return Ref(data_ + i * stride_ + j);
   }
+  __device__ __forceinline__ Row row(int64_t i) const { return Row(data_ + i * stride_); }
   __host__ __device__ int64_t length(int d) const { return d == 0 ? rows_ : cols_; }
   __host__ __device__ int64_t stride() const { return stride_; }
   __host__ __device__ Range window(int64_t row0, int64_t col0, int64_t rows,

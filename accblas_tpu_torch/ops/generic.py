@@ -20,12 +20,21 @@ run in the kernels' order:
   two; at a power of two the two agree.
 - window sum: the window zero-padded to (M, N), both powers of two, read
   flat as (K, B, T) and halved over K, then T, then B (``_window_split``):
-  the kernel's threads, blocks and second launch.
+  the kernel's threads (each holding V neighbouring t), blocks and the last
+  block's fold of the block sums.
+
+The GEMV and the window sum read V neighbouring stored values at once
+(``vector_width``: 4 for f32, 8 for bf16, 4 under df64) where the operands'
+bases and row strides are multiples of V elements and the fold fits the
+vector instantiation's counter; elsewhere they launch the V = 1
+instantiation of the same body (``gemv_vector``, ``window_vector``). The
+sums' order, and so their bits, do not depend on V.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,8 +43,7 @@ from ..accessor.range import Range, ReducedRowMajor
 from . import _build
 from .common import pow2_ceil, pow2_tree_sum, route, zero_pad
 
-# launches of the kernels, counted where the wrappers launch them (a
-# window sum is two: window_sum_blocks, then window_sum_final)
+# launches of the kernels, counted where the wrappers launch them
 axpy_launches = 0
 gemv_launches = 0
 window_launches = 0
@@ -43,11 +51,19 @@ window_launches = 0
 # arithmetic codes (csrc/range.cuh)
 AR_CODE = {"f32": 0, "df64": 1}
 
-_THREADS = 256  # threads of an AXPY, GEMV or window block
-_GEMV_ROWS = _THREADS // 32  # GEMV rows a block, one a warp
-_MAX_BLOCKS = 1024  # window blocks: the second launch folds them in one block
-_MAX_PER_THREAD = 2**19  # values one thread folds (csrc/generic.cu kLevels)
+_THREADS = 256  # threads of an AXPY block
+_WINDOW_T = 256  # T of the window's (K, B, T): a block's threads times V
+_GEMV_ROWS = 4  # GEMV rows a block, one a warp (csrc/generic.cu kGemvWarps)
+_MAX_BLOCKS = 1024  # window blocks B, whose sums the last block folds
 _AXPY_UNROLL = 4  # AXPY columns a thread has in flight (csrc/generic.cu kUnroll)
+# log2 of the steps a fold slot takes at most (csrc/generic.cu): kSteps at a
+# time into a binary counter of kLevelsVec = 8 levels (the vector
+# instantiation, True) or kLevelsOne = 20 (V = 1, False)
+_STEPS = 16
+_LOG2_MAX_PER = {True: _STEPS.bit_length() - 1 + 7, False: _STEPS.bit_length() - 1 + 19}
+# the window's scratch: the block sums (df64 is two floats a sum), then the
+# ticket counter of the last block (csrc/generic.cu accblas_window_sum)
+_SCRATCH_FLOATS = 2 * _MAX_BLOCKS + 1
 
 _AXPY_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
@@ -55,13 +71,16 @@ _AXPY_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, 
 _GEMV_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
               ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-              ctypes.c_uint, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
 _WINDOW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
 
 
 def _arith(ar) -> str:
+    if ar in AR_CODE:  # the common case, without the lookups below
+        return ar
     ar = dtypes.check_arithmetic(ar)
     if ar not in AR_CODE:
         raise ValueError(f"the generic kernels run at f32 or df64 arithmetic, not {ar}")
@@ -69,6 +88,8 @@ def _arith(ar) -> str:
 
 
 def _storage(t, what: str) -> str:
+    if isinstance(t, str) and t in _build.STORAGE_CODE:  # the common case
+        return t
     name = dtypes.canon(t.dtype if isinstance(t, torch.Tensor) else t)
     if name not in _build.STORAGE_CODE:
         raise ValueError(f"{what}: {name} is not a kernel storage type "
@@ -86,6 +107,20 @@ def _rows(t, what: str):
 
 def _log2(v: int) -> int:
     return v.bit_length() - 1
+
+
+def vector_width(dtype: torch.dtype, ar: str) -> int:
+    """Stored values one vector read of the GEMV and the window sum takes
+    for storage `dtype`: 16 bytes of storage, at most 32 bytes of arithmetic
+    values (a fold slot each), as csrc/generic.cu's vec_of."""
+    return min(16 // dtype.itemsize, 32 // (8 if ar == "df64" else 4))
+
+
+def _aligned(v: int, t: torch.Tensor, offset: int = 0, stride: int = 0) -> bool:
+    """Whether element `offset` of t, and every `stride` elements on, lies
+    at a multiple of v elements (v elements of t's dtype)."""
+    size = t.element_size()
+    return stride % v == 0 and (t.data_ptr() + offset * size) % (v * size) == 0
 
 
 # ---------------------------------------------------------------- AXPY
@@ -149,30 +184,51 @@ def _gemv_generic_plain(a, x, r, ar: str, out_st: str, alpha: float, beta: float
     return out
 
 
-def _gemv_split(n: int) -> tuple[int, int]:
-    """(lanes, log2 of the values per lane) of a row of n columns: one warp
-    a row."""
+@functools.lru_cache(maxsize=256)
+def _gemv_split(n: int, v: int) -> tuple[int, int, int]:
+    """(lanes, log2 of the steps a lane takes, slots) of a row of n columns
+    read v at a time, one warp a row: column (k lanes + t) v + s of the
+    zero-padded width is step k of lane t, slot s; `slots` of the v count
+    (fewer only below v columns)."""
     width = pow2_ceil(max(n, 1))
-    lanes = min(32, width)
-    if width // lanes > _MAX_PER_THREAD:
-        raise ValueError(f"gemv_generic: n = {n} is past the kernel's fold "
-                         f"({32 * _MAX_PER_THREAD} columns)")
-    return lanes, _log2(width // lanes)
+    slots = min(v, width)
+    lanes = min(32, width // slots)
+    return lanes, _log2(width // (lanes * slots)), slots
 
 
-def _gemv_generic_cuda(a, x, r, ar: str, out_st: str, alpha: float, beta: float):
+def _gemv_plan(a, x, ar: str) -> tuple[int, int, int, int]:
+    """(V, lanes, log2 of the steps a lane takes, slots) of the GEMV launch:
+    V the vector width where A's base and row stride and x's base are
+    multiples of it and a lane's steps fit its counter, else 1."""
+    n = a.shape[1]
+    v = vector_width(a.dtype, ar)
+    split = _gemv_split(n, v)
+    if not (split[1] <= _LOG2_MAX_PER[True] and _aligned(v, x)
+            and _aligned(v, a, 0, a.stride(0) if a.shape[0] > 1 else 0)):
+        v, split = 1, _gemv_split(n, 1)
+        if split[1] > _LOG2_MAX_PER[False] or n >= 2**30:
+            raise ValueError(f"gemv_generic: n = {n} is past the kernel's fold")
+    return (v, *split)
+
+
+def gemv_vector(a, x, ar: str) -> int:
+    """V of the GEMV instantiation the wrapper launches for A and x (x as
+    the wrapper passes it, contiguous)."""
+    return _gemv_plan(a, x, ar)[0]
+
+
+def _gemv_generic_cuda(a, x, r, ar: str, out_st: str, alpha: float, beta: float, st: int):
     global gemv_launches
     m, n = a.shape
-    out = torch.empty((m, 1), dtype=dtypes.torch_dtype(out_st), device=a.device)
-    lanes, log2_per = _gemv_split(n)
+    out = a.new_empty((m, 1), dtype=r.dtype)
     x, r = x.contiguous(), r.contiguous()
+    v, lanes, log2_per, slots = _gemv_plan(a, x, ar)
     if m:
         fn = _build.function("generic", "accblas_generic_gemv", _GEMV_ARGS)
         with _build.on_device(a):
             err = fn(a.data_ptr(), a.stride(0), x.data_ptr(), r.data_ptr(), out.data_ptr(),
-                     _build.STORAGE_CODE[_storage(a, "gemv_generic a")],
-                     _build.STORAGE_CODE[out_st], m, n, AR_CODE[ar], alpha, beta, lanes,
-                     log2_per, min(-(-m // _GEMV_ROWS), 2**20), _build.stream(a))
+                     st, _build.STORAGE_CODE[out_st], m, n, AR_CODE[ar], alpha, beta, lanes,
+                     log2_per, slots, v, min(-(-m // _GEMV_ROWS), 2**20), _build.stream(a))
         _build.check(err, "generic_gemv kernel launch")
         gemv_launches += 1
     return out
@@ -183,33 +239,47 @@ def gemv_generic(a, x, r, ar, out_st, alpha=1.5, beta=-0.5):
     arithmetic `ar` ('f32' or 'df64'). x (n elements) takes A's storage type,
     r (m elements) the output's."""
     ar, out_st = _arith(ar), _storage(out_st, "gemv_generic out_st")
-    _storage(a, "gemv_generic a")
+    st = _build.storage_code(a, "gemv_generic a")
     _rows(a, "gemv_generic a")
     m, n = a.shape
     if x.numel() != n or r.numel() != m:
         raise ValueError(f"gemv_generic: A {tuple(a.shape)} needs {n} x and {m} r "
                          f"elements, got {x.numel()} and {r.numel()}")
-    if x.dtype != a.dtype or dtypes.canon(r.dtype) != out_st:
+    if x.dtype != a.dtype or r.dtype != dtypes.torch_dtype(out_st):
         raise ValueError(f"gemv_generic: x takes A's dtype and r the output's, got "
                          f"A {a.dtype}, x {x.dtype}, r {r.dtype}, out {out_st}")
     if route("gemv_generic", a, x, r) == "cuda":
-        return _gemv_generic_cuda(a, x, r, ar, out_st, float(alpha), float(beta))
+        return _gemv_generic_cuda(a, x, r, ar, out_st, float(alpha), float(beta), st)
     return _gemv_generic_plain(a, x, r, ar, out_st, float(alpha), float(beta))
 
 
 # ---------------------------------------------------------------- window sum
 
+@functools.lru_cache(maxsize=256)
 def _window_split(m: int, n: int) -> tuple[int, int, int, int]:
     """The kernel's reading of the zero-padded (M, N) window: (log2 N,
-    blocks B, threads T, log2 of K), M N = K B T."""
+    blocks B, T, log2 of K), M N = K B T. T is the threads of a block times
+    the V neighbouring t each holds, whatever V."""
     cols = pow2_ceil(n)
     total = pow2_ceil(m) * cols
-    threads = min(_THREADS, total)
+    threads = min(_WINDOW_T, total)
     blocks = min(_MAX_BLOCKS, total // threads)
-    per = total // (threads * blocks)
-    if per > _MAX_PER_THREAD:
+    return _log2(cols), blocks, threads, _log2(total // (threads * blocks))
+
+
+def window_vector(parent, row0: int, col0: int, m: int, n: int, ar: str) -> int:
+    """V of the window-sum instantiation the wrapper launches: the vector
+    width where the window's base and the parent's row stride are multiples
+    of it and a slot's steps fit its counter, else 1."""
+    v = vector_width(parent.dtype, ar)
+    log2_per = _window_split(m, n)[3]
+    stride = parent.stride(0)
+    if log2_per <= _LOG2_MAX_PER[True] and _aligned(v, parent, row0 * stride + col0,
+                                                      stride if m > 1 else 0):
+        return v
+    if log2_per > _LOG2_MAX_PER[False]:
         raise ValueError(f"window_sum: a ({m}, {n}) window is past the kernel's fold")
-    return _log2(cols), blocks, threads, _log2(per)
+    return 1
 
 
 def _window_sum_plain(parent, row0: int, col0: int, m: int, n: int, ar: str):
@@ -226,19 +296,34 @@ def _window_sum_plain(parent, row0: int, col0: int, m: int, n: int, ar: str):
     return out
 
 
-def _window_sum_cuda(parent, row0: int, col0: int, m: int, n: int, ar: str):
+# the window sum's scratch buffers, one a (device, stream): calls on a
+# stream use theirs in stream order, and each call leaves its ticket at 0
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _window_scratch(parent, stream: int) -> int:
+    """The address of the scratch buffer of the stream `stream` of parent's
+    device."""
+    key = (parent.get_device(), stream)
+    buf = _scratch.get(key)
+    if buf is None:  # zeroed on that stream, before its first call
+        buf = _scratch[key] = parent.new_zeros(_SCRATCH_FLOATS, dtype=torch.float32)
+    return buf.data_ptr()
+
+
+def _window_sum_cuda(parent, row0: int, col0: int, m: int, n: int, ar: str, st: int):
     global window_launches
     log2_n, blocks, threads, log2_per = _window_split(m, n)
-    out = torch.empty((1, 1), dtype=torch.float32, device=parent.device)
-    partial = torch.empty(blocks * (2 if ar == "df64" else 1), dtype=torch.float32,
-                          device=parent.device)
+    v = window_vector(parent, row0, col0, m, n, ar)
+    out = parent.new_empty((1, 1), dtype=torch.float32)
     fn = _build.function("generic", "accblas_window_sum", _WINDOW_ARGS)
     with _build.on_device(parent):
-        err = fn(parent.data_ptr(), _build.STORAGE_CODE[_storage(parent, "window_sum parent")],
-                 parent.stride(0), row0, col0, m, n, AR_CODE[ar], out.data_ptr(),
-                 partial.data_ptr(), log2_n, blocks, threads, log2_per, _build.stream(parent))
+        stream = _build.stream(parent)
+        err = fn(parent.data_ptr(), st, parent.stride(0), row0, col0, m, n, AR_CODE[ar],
+                 out.data_ptr(), _window_scratch(parent, stream), log2_n, blocks,
+                 _log2(threads), log2_per, v, stream)
     _build.check(err, "window_sum kernel launch")
-    window_launches += 2
+    window_launches += 1
     return out
 
 
@@ -246,7 +331,7 @@ def window_sum(parent, row0, col0, m, n, ar="f32"):
     """The sum, in arithmetic `ar` ('f32' or 'df64'), of the (m, n) window at
     (row0, col0) of a 2-D parent, as a (1, 1) float32 tensor."""
     ar = _arith(ar)
-    _storage(parent, "window_sum parent")
+    st = _build.storage_code(parent, "window_sum parent")
     _rows(parent, "window_sum parent")
     row0, col0, m, n = (int(v) for v in (row0, col0, m, n))
     if min(row0, col0, m, n) < 0 or row0 + m > parent.shape[0] or col0 + n > parent.shape[1]:
@@ -255,5 +340,5 @@ def window_sum(parent, row0, col0, m, n, ar="f32"):
     if m == 0 or n == 0:
         return torch.zeros((1, 1), dtype=torch.float32, device=parent.device)
     if route("window_sum", parent) == "cuda":
-        return _window_sum_cuda(parent, row0, col0, m, n, ar)
+        return _window_sum_cuda(parent, row0, col0, m, n, ar, st)
     return _window_sum_plain(parent, row0, col0, m, n, ar)

@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
-     prints ptxas' registers and spills of the GEMV kernel's instantiations
-     and of the draw and column-sum kernels';
+     prints ptxas' registers and spills of the GEMV kernel's instantiations,
+     of the draw and column-sum kernels' and of the generic GEMV's and
+     window sum's at the three generic pairings;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -48,15 +49,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the device Range, at f32/f32, bf16 storage with f32 arithmetic and
      f32 storage with df64 arithmetic, on operands drawn by the draw
      kernel: generic_axpy over a (16384, 32768) range, generic_gemv at
-     16384^2 and at 16383 x 16385, window_sum over the (8192, 16384) window
-     at (4096, 8192) of a (16384, 32768) parent; each against its plain
+     16384^2, at 16383 x 16385 and at 16384^2 one element off, window_sum
+     over the (8192, 16384) window at (4096, 8192) of a (16384, 32768)
+     parent and the same window one column on; each against its plain
      version on the same inputs (bit for bit) and against float64 on the
      stored values (AXPY and the df64 results correctly rounded, the f32
-     GEMV and window within the f32 tier's bound), then timed beside its
-     bytes bound, its plain version, acc_gemv for the same GEMV and the
-     PyTorch call for the same f32 function ("time generic_..." lines);
-     the three kernels' counters are reset before the phase and must each
-     have launched;
+     GEMV and window within the f32 tier's bound), the V each call takes
+     logged (the vector read where the operands are aligned, else V = 1),
+     then timed beside its bytes bound, its plain version, acc_gemv for the
+     same GEMV and the PyTorch call for the same f32 function ("time
+     generic_..." lines, with the V = 1 instantiation's time one element
+     off), and split into event ms, device ms and host us a call ("split"
+     lines); the generic GEMV's and window sum's instantiations at the
+     three pairings must show no ptxas spill; the three kernels' counters
+     are reset before the phase and must each have launched;
   f8 probe: the port of scripts/probe_r4a.py through its entry point
      (accblas_tpu_torch.bench.probe_r4a.main at N = 24576: GEMV
      Acc<f32,f8e4m3> as acc_gemv (A), two torch forms (B, C) and
@@ -200,28 +206,58 @@ def phase_build():
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib}: {line.strip()}")
+    for name, (regs, spill) in generic_ptxas().items():
+        log(f"ptxas {name}: {regs} registers, {spill} spill bytes")
+
+
+# the generic pairings' template arguments (Ar, storage) as c++filt prints them
+GENERIC_PTXAS_PAIRS = (("float", "float"), ("float", "__nv_bfloat16"), ("accblas::DF", "float"))
+
+
+def ptxas_entries(text: str) -> dict:
+    """{demangled kernel: [registers, spill bytes]} from ptxas -v lines."""
+    found, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+            found[name] = [0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True, text=True,
+                           check=True).stdout.split("\n")
+    return dict(zip(names, found.values()))
+
+
+def generic_ptxas() -> dict:
+    """Registers and spill bytes of the generic GEMV's and window sum's
+    instantiations at the three generic pairings (f32 output), both V, by
+    their template arguments <V, levels, Ar, storage[, output]>."""
+    from accblas_tpu_torch.ops import _build
+
+    out = {}
+    for pretty, rs in ptxas_entries(_build.build_log("generic")).items():
+        m = re.search(r"(generic_gemv|window_sum)<(\d+), (\d+), ([\w:]+), ([\w:]+)(, [\w:]+)?>",
+                      pretty)
+        if m and (m.group(4), m.group(5)) in GENERIC_PTXAS_PAIRS \
+                and m.group(6) in (None, ", float"):
+            out[m.group(0)] = tuple(rs)
+    if len(out) != 12:
+        raise AssertionError(f"ptxas: {len(out)} of the 12 generic GEMV and window "
+                             f"instantiations found in the build log")
+    return out
 
 
 def log_ptxas(kernel: str, text: str):
     """Registers and spill bytes of each instantiation of `kernel`, from the
     ptxas -v lines of its library's build log: a line per tier, and one per
     main-path instantiation (GEMV's A and x storage, tier)."""
-    found, name = {}, None
-    for line in text.splitlines():
-        if m := re.search(r"Compiling entry function '(\w+)'", line):
-            name = m.group(1) if kernel in m.group(1) else None
-            if name:
-                found[name] = [0, 0]
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            found[name][1] = int(m.group(1)) + int(m.group(2))
-        elif name and (m := re.search(r"Used (\d+) registers", line)):
-            found[name][0] = int(m.group(1))
+    found = {pretty: rs for pretty, rs in ptxas_entries(text).items() if kernel in pretty}
     if not found:
         raise AssertionError(f"no ptxas report of {kernel} in the build log")
-    names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True, text=True,
-                           check=True).stdout.split("\n")
     by_tier = {}
-    for pretty, (regs, spill) in zip(names, found.values()):
+    for pretty, (regs, spill) in found.items():
         tier = int(re.search(r", (\d)>\(", pretty).group(1))
         by_tier.setdefault(tier, []).append((regs, spill))
         if any(f"{kernel}<{st}, {st}, {t}>" in pretty
@@ -1122,6 +1158,17 @@ def device_ms(label: str, call, counted: dict) -> float:
     return sum(ms for ms, _ in prof.values())
 
 
+def generic_split(label: str, call, counted: dict, ms: float) -> dict:
+    """Where a generic call's time goes: its CUDA-event ms (`ms`), its
+    device ms (torch.profiler) and the host us it takes to return, which
+    is the host time before its one launch ("split" line)."""
+    dev_ms = device_ms(label, call, counted)
+    us = host_us(call, reps=500)
+    log(f"split {label}: event ms {ms:.4f} | device ms {dev_ms:.4f} | host us before the "
+        f"launch {us:.2f}")
+    return {"device_ms": dev_ms, "host_us": us}
+
+
 def phase_generic() -> list[dict]:
     """generic_axpy, generic_gemv and window_sum (csrc/generic.cu, one body
     each against the device Range) at full width, each at the three
@@ -1139,14 +1186,19 @@ def phase_generic() -> list[dict]:
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     chk = Checks()
+    spills = {name: spill for name, (_, spill) in generic_ptxas().items()}
+    chk.record(not any(spills.values()), f"generic: ptxas spill bytes of the GEMV and window "
+                                         f"instantiations at the three pairings: {spills}")
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     x32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_x", device=dev)
     y32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_y", device=dev)
     gemv_ops = {}
-    for m, n in ((N_GEMV, N_GEMV), (N_GEMV - 1, N_GEMV + 1)):
-        gemv_ops[(m, n)] = (devgen.gen_f32((m, n), SEED, "generic_a", device=dev),
-                            devgen.gen_f32((n,), SEED, "generic_xv", device=dev),
-                            devgen.gen_f32((m,), SEED, "generic_r", device=dev))
+    for m, n, off in ((N_GEMV, N_GEMV, False), (N_GEMV - 1, N_GEMV + 1, False),
+                      (N_GEMV, N_GEMV, True)):
+        gemv_ops[(m, n, off)] = gemv_ops.get((m, n, False)) or (
+            devgen.gen_f32((m, n), SEED, "generic_a", device=dev),
+            devgen.gen_f32((n,), SEED, "generic_xv", device=dev),
+            devgen.gen_f32((m,), SEED, "generic_r", device=dev))
     row0, col0, wm, wn = GENERIC_WINDOW
     gen.axpy_launches = gen.gemv_launches = gen.window_launches = 0
     rec = {"axpy": {}, "gemv": {}, "window": {}}
@@ -1168,6 +1220,7 @@ def phase_generic() -> list[dict]:
         pair = f"{st}/{ar}"
         x, y = x32.to(dt[st]), y32.to(dt[st])
         ebytes = x.element_size()
+        vec = gen.vector_width(x.dtype, ar)
         flops = GENERIC_FLOPS[ar]
 
         # ---- AXPY: one rounding an element, so correctly rounded ----
@@ -1192,18 +1245,23 @@ def phase_generic() -> list[dict]:
         rec["axpy"][pair] = r
         torch.cuda.empty_cache()
 
-        # ---- the window sum, through a strided Range of the parent x ----
-        label = f"window_sum {pair} ({wm}, {wn}) at ({row0}, {col0}) of {GENERIC_SHAPE}"
-        got = gen.window_sum(x, row0, col0, wm, wn, ar)
+        # ---- the window sum, through a strided Range of the parent x; then
+        # the window one column on, which the V = 1 instantiation reads ----
+        for c0 in (col0, col0 + 1):
+            label = f"window_sum {pair} ({wm}, {wn}) at ({row0}, {c0}) of {GENERIC_SHAPE}"
+            v, want = gen.window_vector(x, row0, c0, wm, wn, ar), 1 if c0 % 2 else vec
+            kind = "vector" if v > 1 else "element"
+            chk.record(v == want, f"generic {label}: V = {v} (the {kind} instantiation)")
+            got = gen.window_sum(x, row0, c0, wm, wn, ar)
+            w64 = x[row0:row0 + wm, c0:c0 + wn].double()
+            ref, scale = float(w64.sum()), float(w64.abs().sum())
+            del w64
+            err = abs(float(got) - ref) / scale
+            # f32: the tier bound; df64: one rounding of the exact sum to f32
+            bd_err = tolerance.TOL["f32"] if ar == "f32" else 2.0**-24 * abs(ref) / scale + 1e-12
+            compare("window", label, got, gen._window_sum_plain(x, row0, c0, wm, wn, ar), err,
+                    bd_err)
         w = x[row0:row0 + wm, col0:col0 + wn]
-        w64 = w.double()
-        ref, scale = float(w64.sum()), float(w64.abs().sum())
-        del w64
-        err = abs(float(got) - ref) / scale
-        # f32: the tier bound; df64: one rounding of the exact sum to f32
-        bd_err = tolerance.TOL["f32"] if ar == "f32" else 2.0**-24 * abs(ref) / scale + 1e-12
-        compare("window", label, got, gen._window_sum_plain(x, row0, col0, wm, wn, ar), err,
-                bd_err)
         nel = wm * wn
         bnd, by = bound(nel * ebytes + 4, flops["window"] * nel)
         r = {"ms": benchmark_function(lambda: gen.window_sum(x, row0, col0, wm, wn, ar)),
@@ -1212,19 +1270,27 @@ def phase_generic() -> list[dict]:
              "bound_ms": bnd, "bound_by": by, "library_ms": None}
         if ar == "f32":  # the same sum: storage type in, f32 arithmetic and result
             r["library_ms"] = benchmark_function(lambda: w.sum(dtype=torch.float32))
-        # a call launches each of the two kernels once, and counts 2
-        r["device_ms"] = device_ms(f"window_sum {pair}",
-                                   lambda: gen.window_sum(x, row0, col0, wm, wn, ar),
-                                   {k: lambda: gen.window_launches // 2
-                                    for k in ("window_sum_blocks", "window_sum_final")})
+        r["v1_ms"] = benchmark_function(lambda: gen.window_sum(x, row0, col0 + 1, wm, wn, ar))
+        r.update(generic_split(f"window_sum {pair}",
+                               lambda: gen.window_sum(x, row0, col0, wm, wn, ar),
+                               {"window_sum": lambda: gen.window_launches}, r["ms"]))
         rec["window"][pair] = r
         del x, y, w
         torch.cuda.empty_cache()
 
-        # ---- GEMV at 16384^2 and at a ragged 16383 x 16385 ----
-        for (m, n), (a32, xv32, rv) in gemv_ops.items():
+        # ---- GEMV at 16384^2, at a ragged 16383 x 16385 (row stride 16385)
+        # and at 16384^2 one element off (both read by the V = 1
+        # instantiation) ----
+        for (m, n, off), (a32, xv32, rv) in gemv_ops.items():
             a, xv = a32.to(dt[st]), xv32.to(dt[st])
-            label = f"gemv {pair} {m}x{n} alpha=1.5 beta=-0.5"
+            if off:
+                a_off = torch.empty(m * n + 1, dtype=a.dtype, device=dev)[1:].view(m, n)
+                a = a_off.copy_(a)
+            label = (f"gemv {pair} {m}x{n}{' one element off' if off else ''} "
+                     f"alpha=1.5 beta=-0.5")
+            v, want = gen.gemv_vector(a, xv, ar), vec if m == n and not off else 1
+            kind = "vector" if v > 1 else "element"
+            chk.record(v == want, f"generic {label}: V = {v} (the {kind} instantiation)")
             got = gen.gemv_generic(a, xv, rv, ar, "f32")
             a64, x64 = a.double(), xv.double()
             ref = 1.5 * torch.mv(a64, x64) - 0.5 * rv.double()
@@ -1235,7 +1301,10 @@ def phase_generic() -> list[dict]:
             compare("gemv", label, got, gen._gemv_generic_plain(a, xv, rv, ar, "f32", 1.5, -0.5),
                     err, bd_err)
             del ref, scale, got
-            if m == n:
+            if off:
+                rec["gemv"][pair]["v1_ms"] = benchmark_function(
+                    lambda: gen.gemv_generic(a, xv, rv, ar, "f32"))
+            elif m == n:
                 nbytes = m * n * ebytes + n * ebytes + 2 * m * 4
                 bnd, by = bound(nbytes, flops["gemv"] * m * n)
                 r = {"ms": benchmark_function(lambda: gen.gemv_generic(a, xv, rv, ar, "f32")),
@@ -1257,9 +1326,9 @@ def phase_generic() -> list[dict]:
                 if pair == "f32/f32":  # the same function in one call
                     r["library_ms"] = benchmark_function(
                         lambda: torch.addmv(rv, a, xv, beta=-0.5, alpha=1.5))
-                r["device_ms"] = device_ms(f"generic_gemv {pair}",
-                                           lambda: gen.gemv_generic(a, xv, rv, ar, "f32"),
-                                           {"generic_gemv": lambda: gen.gemv_launches})
+                r.update(generic_split(f"generic_gemv {pair}",
+                                       lambda: gen.gemv_generic(a, xv, rv, ar, "f32"),
+                                       {"generic_gemv": lambda: gen.gemv_launches}, r["ms"]))
                 rec["gemv"][pair] = r
             del a, xv
             torch.cuda.empty_cache()
@@ -1273,7 +1342,8 @@ def phase_generic() -> list[dict]:
     for kind, pairs in rec.items():
         for pair, r in pairs.items():
             extra = "".join(f" | {what} {r[key]:.4f} ms" for key, what in
-                            (("acc_gemv_ms", "acc_gemv"), ("mv_ms", "torch.mv"))
+                            (("v1_ms", "V = 1 one element off"), ("acc_gemv_ms", "acc_gemv"),
+                             ("mv_ms", "torch.mv"))
                             if key in r)
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             log(f"time {names[kind]} {pair}: kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}"

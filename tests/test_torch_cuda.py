@@ -873,18 +873,84 @@ def test_generic_gemv_kernel(cuda, m, n, st, ar):
     ((4096, 4096), (0, 0, 4096, 4096)),
 ])
 def test_window_sum_kernel(cuda, shape, window, st, ar):
-    """Block partials and a second launch, in the plain version's order: bit
-    for bit, at odd offsets and strides and a (1, 1) window."""
+    """Block partials folded by the last block, one launch, in the plain
+    version's order: bit for bit, at odd offsets and strides and a (1, 1)
+    window."""
     parent = _draw(shape, "generic_w", st, cuda)
     before = tgen.window_launches
     got = tgen.window_sum(parent, *window, ar)
-    assert tgen.window_launches == before + 2
+    assert tgen.window_launches == before + 1
     assert torch.equal(got, tgen._window_sum_plain(parent, *window, ar))
     row0, col0, m, n = window
     w = parent[row0:row0 + m, col0:col0 + n].double()
     depth = np.log2(max(m * n, 2)) + 2
     bound = 2**-24 * (1 if ar == "df64" else depth) * float(w.abs().sum())
     assert abs(float(got) - float(w.sum())) <= bound
+
+
+def _gemv_case(a, x, ar, v):
+    r = _draw((a.shape[0],), "generic_r", "f32", a.device)
+    assert tgen.gemv_vector(a, x, ar) == v
+    before = tgen.gemv_launches
+    got = tgen.gemv_generic(a, x, r, ar, "f32")
+    assert tgen.gemv_launches == before + 1
+    assert torch.equal(got, tgen._gemv_generic_plain(a, x, r, ar, "f32", 1.5, -0.5))
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+@pytest.mark.parametrize("n", [4 * 32 - 1, 4 * 32 + 1, 8 * 32 - 1, 8 * 32 + 1, 16_384])
+def test_generic_gemv_both_instantiations(cuda, n, st, ar):
+    """The vector instantiation (rows at a stride that is a multiple of V)
+    and the V = 1 one (A one element off, an odd stride, x one element off)
+    on the same values: each bit-equal to the plain version."""
+    v = tgen.vector_width(STORAGE[st], ar)
+    m = 40
+    wide = _draw((m, n + 31 - (n + 23) % 8), "generic_a", st, cuda)  # a multiple of 8 columns
+    xbuf = _draw((n + 8,), "generic_xv", st, cuda)
+    _gemv_case(wide[:, 8:n + 8], xbuf[8:], ar, v)      # 16-byte aligned rows
+    _gemv_case(wide[:, 1:n + 1], xbuf[8:], ar, 1)      # one element off
+    _gemv_case(wide[:, 8:n + 8], xbuf[1:n + 1], ar, 1)  # x one element off
+    odd = _draw((m, n), "generic_a", st, cuda)          # stride n, odd
+    _gemv_case(odd, xbuf[8:], ar, 1 if m > 1 and n % v else v)
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+def test_generic_gemv_at_stride_16385(cuda, st, ar):
+    """a[:, 1:] of a (m, 16385) parent: row stride 16385, unaligned, the V = 1
+    instantiation; its aligned copy takes the vector one; the same bits."""
+    parent = _draw((64, 16_385), "generic_a", st, cuda)
+    x = _draw((16_384,), "generic_xv", st, cuda)
+    _gemv_case(parent[:, 1:], x, ar, 1)
+    _gemv_case(parent[:, 1:].contiguous(), x, ar, tgen.vector_width(STORAGE[st], ar))
+
+
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+@pytest.mark.parametrize("window", [(3, 16, 300, 2000), (3, 17, 300, 2000), (0, 8, 1, 7),
+                                    (5, 24, 1000, 4 * 32 + 1)])
+def test_window_sum_both_instantiations(cuda, window, st, ar):
+    """A window at a column that is a multiple of V (the vector
+    instantiation) and one at an odd column (V = 1): bit-equal to the plain
+    version; the parent's row stride 2056 is a multiple of every V."""
+    parent = _draw((1100, 2056), "generic_w", st, cuda)
+    row0, col0, m, n = window
+    v = tgen.vector_width(STORAGE[st], ar) if col0 % tgen.vector_width(STORAGE[st], ar) == 0 else 1
+    assert tgen.window_vector(parent, *window, ar) == v
+    got = tgen.window_sum(parent, *window, ar)
+    assert torch.equal(got, tgen._window_sum_plain(parent, *window, ar))
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+def test_window_sum_resets_its_ticket(cuda, ar):
+    """100 window sums back to back on one stream, vector and V = 1, every
+    result bit-equal: the last block of each call leaves the ticket counter
+    at 0 for the next."""
+    parent = _draw((2048, 4104), "generic_w", "f32", cuda)
+    calls = [(1, 8, 2000, 4000), (1, 9, 2000, 4000), (0, 0, 2048, 4096)]
+    first = [tgen.window_sum(parent, *w, ar) for w in calls]
+    outs = [tgen.window_sum(parent, *calls[i % 3], ar) for i in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first[i % 3]) for i, o in enumerate(outs))
+    assert torch.equal(first[0], tgen._window_sum_plain(parent, *calls[0], ar))
 
 
 def test_generic_kernels_repeat_their_bits(cuda):

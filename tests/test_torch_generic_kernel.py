@@ -23,7 +23,9 @@ from accblas_tpu import ReducedRowMajor as JaxSpec
 from accblas_tpu.ops.common import interpret_default
 from accblas_tpu.ops.df64 import DF as JaxDF
 from accblas_tpu.utils import MatrixInfo, gen_mtx
+from accblas_tpu_torch.accessor.range import Range, ReducedRowMajor
 from accblas_tpu_torch.ops import generic
+from accblas_tpu_torch.ops.common import pow2_tree_sum
 from accblas_tpu_torch.ops.df64 import DF
 from test_generic_kernel import _reduce_last
 from test_generic_kernel import axpy as jax_axpy
@@ -226,6 +228,208 @@ def test_window_sum_plain_folds_in_the_kernel_order():
     while v.numel() > 1:
         v = v[: v.numel() // 2] + v[v.numel() // 2:]
     assert torch.equal(got.reshape(1), v)
+
+
+# ------------------------------------- replays of the kernels' index maps and folds
+
+def _bit_reverse(k: int, bits: int) -> int:
+    return int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _gather(vals, idx):
+    """vals[..., idx] of a (rows, n) tensor or DF, Ar{} = +0 where idx is -1."""
+    if isinstance(vals, DF):
+        return DF(_gather(vals.hi, idx), _gather(vals.lo, idx))
+    padded = torch.cat([vals, vals.new_zeros(vals.shape[0], 1)], 1)
+    return padded[:, torch.where(idx < 0, vals.shape[1], idx)]
+
+
+def _fold_replay(load, log2_count):
+    """csrc/generic.cu pairwise_fold: kSteps values at a time (load(p) is
+    value p, zero past the count), folded by an unrolled tree, then pushed
+    into a binary counter; the full level at the end."""
+    steps, count = generic._STEPS, 1 << log2_count
+    levels, pushes = [], 0
+    for p0 in range(0, count, steps):
+        vals = [load(p0 + r) for r in range(steps)]
+        w = 1
+        while w < steps:
+            if w < count:
+                for r in range(0, steps, 2 * w):
+                    vals[r] = vals[r] + vals[r + w]
+            w *= 2
+        v, level = vals[0], 0
+        while (pushes >> level) & 1:
+            v = levels[level] + v
+            level += 1
+        levels[level:level + 1] = [v]
+        pushes += 1
+    return levels[pushes.bit_length() - 1]
+
+
+def _halve(v, axis: int, width: int):
+    """The first `width` / 2 entries of v along `axis` after one halving
+    level (entry s takes s + width / 2), as lane or thread 0's shuffle chain
+    reads them."""
+    head = (slice(None),) * axis
+    h = width // 2
+    return v[head + (slice(0, h),)] + v[head + (slice(h, 2 * h),)]
+
+
+def _slot_fold(v, width: int, slots: int):
+    """slot_fold over the last axis: halving over the first `slots` of
+    `width` slots."""
+    w = width // 2
+    while w:
+        v = _halve(v, v.ndim - 1, 2 * w) if w < slots else v[..., :w]
+        w //= 2
+    return v[..., 0]
+
+
+def _gemv_replay(prods, v: int):
+    """The GEMV kernel's row sums of (m, n) products read v at a time: lane
+    t's slot s holds column (k lanes + t) v + s of step k."""
+    m, n = prods.shape
+    lanes, log2_per, slots = generic._gemv_split(n, v)
+    per = 1 << log2_per
+    t, s = torch.arange(32).view(32, 1), torch.arange(v).view(1, v)
+
+    def load(p):
+        j = (_bit_reverse(p % per, log2_per) * lanes + t) * v + s
+        return _gather(prods, torch.where((t < lanes) & (j < n) & (p < per), j, -1))
+
+    own = _fold_replay(load, log2_per)  # (m, 32 lanes, v slots)
+    h = lanes
+    while h > 1:  # lane t takes lane t + h / 2
+        own, h = _halve(own, 1, h), h // 2
+    return _slot_fold(own[:, 0], v, slots)
+
+
+def _products(m, n, ar, seed):
+    """(m, n) products of mixed magnitudes in arithmetic `ar`, so that the
+    order of their sum shows in its bits."""
+    rng = np.random.default_rng(seed)
+    mag = 2.0 ** rng.integers(-12, 12, (m, n))
+    hi = torch.from_numpy((rng.standard_normal((m, n)) * mag).astype(np.float32))
+    if ar == "f32":
+        return hi
+    lo = torch.from_numpy((hi.double().numpy() * rng.uniform(-2**-25, 2**-25, (m, n)))
+                          .astype(np.float32))
+    return DF(hi, lo)
+
+
+def _equal_bits(got, want):
+    if isinstance(want, DF):
+        return _equal_bits(got.hi, want.hi) and _equal_bits(got.lo, want.lo)
+    return np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("v", [1, 4, 8])
+def test_gemv_replay_folds_as_the_halving_tree(v):
+    """The kernel's index map and fold, replayed at every width 1-1025 (so
+    v*32 - 1, v*32 and v*32 + 1 among them) on f32 products: bit for bit
+    _reduce_last's zero-padded halving, the plain version's pow2_tree_sum."""
+    prods = _products(2, 1025, "f32", 31)
+    for n in range(1, 1026):
+        got, want = _gemv_replay(prods[:, :n], v), pow2_tree_sum(prods[:, :n])
+        assert _equal_bits(got, want), n
+
+
+@pytest.mark.parametrize("v", [1, 4, 8])
+def test_gemv_replay_folds_df64_as_the_halving_tree(v):
+    """The same on DF products (both words), at v*32 +- 1 and past one
+    counter chunk of steps."""
+    prods = _products(2, 8 * 32 * v * 2 + 1, "df64", 32)
+    for n in (1, 3, 32 * v - 1, 32 * v + 1, 4 * 32 + 1, 8 * 32 - 1, 8 * 32 * v * 2 + 1):
+        assert _equal_bits(_gemv_replay(prods[:, :n], v), pow2_tree_sum(prods[:, :n])), n
+
+
+def _window_replay(parent, row0, col0, m, n, ar, v):
+    """The window kernel: block b's thread `th` holds t = th v + s of the flat
+    (K, B, T) reading as slot s, at the parent element of the flat index's
+    (row, column); its slots fold over k, the block over its threads, each
+    thread over its slots, then the last block over the block sums; the sum
+    is stored through a (1, 1) f32 Range."""
+    log2_n, blocks, t, log2_per = generic._window_split(m, n)
+    per, threads, slots = 1 << log2_per, max(t // v, 1), min(t, v)
+    vals = Range(ReducedRowMajor(ar, parent.dtype), parent, const=True).load().reshape(1, -1)
+    b = torch.arange(blocks).view(blocks, 1, 1)
+    th, s = torch.arange(threads).view(1, threads, 1), torch.arange(v).view(1, 1, v)
+
+    def load(p):
+        q = (_bit_reverse(p % per, log2_per) * blocks + b) * t + th * v + s
+        i, j = q >> log2_n, q & ((1 << log2_n) - 1)
+        flat = (row0 + i) * parent.stride(0) + col0 + j
+        ok = (s < slots) & (i < m) & (j < n) & (p < per)
+        return _gather(vals, torch.where(ok, flat, -1))[0]
+
+    own = _fold_replay(load, log2_per)  # (blocks, threads, v slots)
+    h = threads
+    while h > 1:
+        own, h = _halve(own, 1, h), h // 2
+    own = _slot_fold(own[:, 0], v, slots)
+    while blocks > 1:
+        own, blocks = _halve(own, 0, blocks), blocks // 2
+    out = torch.empty((1, 1), dtype=torch.float32)
+    Range(ReducedRowMajor(ar, "f32"), out).store(own.reshape(1, 1))
+    return out
+
+
+@pytest.mark.parametrize("ar", ["f32", "df64"])
+@pytest.mark.parametrize("v", [1, 4, 8])
+@pytest.mark.parametrize("shape,window", [
+    ((37, 301), (5, 9, 13, 77)),           # ragged, odd offsets, stride 301
+    ((9, 11), (4, 7, 1, 1)),               # a (1, 1) window: T = 1 < v
+    ((5, 3), (1, 0, 4, 3)),                # a window narrower than v
+    ((2100, 2051), (3, 2, 2049, 2047)),    # K = 32: four counter chunks
+])
+def test_window_replay_folds_as_the_plain_version(shape, window, v, ar):
+    """The window kernel's index map and fold, replayed at v = 1, 4 and 8:
+    bit for bit the plain version's (K, B, T) halving."""
+    rng = np.random.default_rng(sum(shape) + v)
+    mag = 2.0 ** rng.integers(-12, 12, shape)
+    parent = torch.from_numpy((rng.standard_normal(shape) * mag).astype(np.float32))
+    got = _window_replay(parent, *window, ar, v)
+    assert torch.equal(got, generic._window_sum_plain(parent, *window, ar))
+
+
+def test_the_wrappers_choose_the_vector_instantiation_by_alignment():
+    """V is the pair's vector width where every base and row stride the
+    kernel reads is a multiple of V elements and the fold fits the vector
+    counter; else the V = 1 instantiation."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert [generic.vector_width(dt, ar) for dt, ar in
+            ((f32, "f32"), (bf16, "f32"), (f32, "df64"), (bf16, "df64"),
+             (torch.float8_e4m3fn, "f32"))] == [4, 8, 4, 4, 8]
+    a, x = torch.zeros(64, 256), torch.zeros(256)
+    assert generic.gemv_vector(a, x, "f32") == 4
+    assert generic.gemv_vector(a, x, "df64") == 4
+    assert generic.gemv_vector(a.to(bf16), x.to(bf16), "f32") == 8
+    assert generic.gemv_vector(a.to(bf16), x.to(bf16), "df64") == 4
+    off = torch.zeros(64, 257)[:, 1:]  # one element off, row stride 257
+    assert generic.gemv_vector(off, x, "f32") == 1
+    assert generic.gemv_vector(torch.zeros(64, 260)[:, 4:], x, "f32") == 4  # 16 bytes off
+    assert generic.gemv_vector(torch.zeros(64, 255), torch.zeros(255), "f32") == 1  # odd stride
+    assert generic.gemv_vector(torch.zeros(1, 255), torch.zeros(255), "f32") == 4  # one row
+    assert generic.gemv_vector(a, torch.zeros(257)[1:], "f32") == 1  # x one element off
+    b16 = torch.zeros(64, 272, dtype=bf16)
+    assert generic.gemv_vector(b16[:, 8:], x.to(bf16), "f32") == 8
+    assert generic.gemv_vector(b16[:, 4:], x.to(bf16), "f32") == 1  # 8 bytes: not 16
+    assert generic.gemv_vector(b16[:, 4:], x.to(bf16), "df64") == 4  # 8-byte reads
+    deep = 32 * 4 << generic._LOG2_MAX_PER[True]  # the widest f32 row the counter holds
+    assert generic.gemv_vector(torch.zeros(1, deep), torch.zeros(deep), "f32") == 4
+    assert generic.gemv_vector(torch.zeros(1, deep + 1)[:, :deep + 1],
+                               torch.zeros(deep + 1), "f32") == 1
+
+    p = torch.zeros(64, 256, dtype=f32)
+    assert generic.window_vector(p, 1, 4, 20, 100, "f32") == 4
+    assert generic.window_vector(p, 1, 1, 20, 100, "f32") == 1  # window one element off
+    assert generic.window_vector(p.to(bf16), 1, 4, 20, 100, "f32") == 1
+    assert generic.window_vector(p.to(bf16), 1, 8, 20, 100, "f32") == 8
+    assert generic.window_vector(p, 2, 4, 20, 100, "df64") == 4
+    odd = torch.zeros(9, 301)
+    assert generic.window_vector(odd, 0, 0, 5, 8, "f32") == 1  # odd row stride
+    assert generic.window_vector(odd, 0, 0, 1, 8, "f32") == 4  # one row: no stride read
 
 
 # ---------------------------------------------------------------- the wrappers
