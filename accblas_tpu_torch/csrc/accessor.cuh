@@ -86,7 +86,8 @@ __device__ __forceinline__ float round_ar(float v) {
   }
 }
 
-// ---- vector loads: V storage values in one aligned access ----
+// ---- vector loads: V storage values in one aligned access (a pack of 32
+// bytes is two 16-byte accesses) ----
 template <class T, int V>
 struct alignas(sizeof(T) * V) Pack {
   T v[V];
@@ -112,6 +113,43 @@ __device__ __forceinline__ Pack<T, V> load_pack_stream(const T* p) {
     return pack;
   } else {
     return load_pack<T, V>(p);
+  }
+}
+
+// ---- vector stores: V storage values in one aligned access ----
+template <class T, int V>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, V>& pack) {
+  *reinterpret_cast<Pack<T, V>*>(p) = pack;
+}
+
+// the same store of values written once, marked evict-first in the caches
+// (st.global.cs): 16 bytes at a time, or 8 or 4 for a pack of that size; a
+// pack of 2 or 1 bytes as store_pack
+template <class T, int V>
+__device__ __forceinline__ void store_pack_stream(T* p, const Pack<T, V>& pack) {
+  constexpr int kBytes = sizeof(Pack<T, V>);
+  if constexpr (kBytes % 16 == 0) {
+    uint4 w[kBytes / 16];
+    memcpy(w, &pack, kBytes);
+#pragma unroll
+    for (int k = 0; k < kBytes / 16; ++k) {
+      asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                   :
+                   : "l"(reinterpret_cast<uint4*>(p) + k), "r"(w[k].x), "r"(w[k].y),
+                     "r"(w[k].z), "r"(w[k].w)
+                   : "memory");
+    }
+  } else if constexpr (kBytes == 8) {
+    uint2 w;
+    memcpy(&w, &pack, kBytes);
+    asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};" : : "l"(p), "r"(w.x), "r"(w.y)
+                 : "memory");
+  } else if constexpr (kBytes == 4) {
+    unsigned w;
+    memcpy(&w, &pack, kBytes);
+    asm volatile("st.global.cs.u32 [%0], %1;" : : "l"(p), "r"(w) : "memory");
+  } else {
+    store_pack<T, V>(p, pack);
   }
 }
 

@@ -10,17 +10,23 @@
 //   window_sum     tests/test_accessor.py:165 (the strided-window sum)
 // The TPU kernels hold whole operands in VMEM and fold in one grid step. On
 // the H100 the least time of all three is their bytes (each operand read
-// once; df64's ~20 flops an element need less). Every sum runs in a fixed
-// order, so that every run gives the same bits; ops/generic.py's plain
-// versions spell out the same orders.
+// once, each output written once; df64's ~20 flops an element need less).
+// Every sum runs in a fixed order, so that every run gives the same bits;
+// ops/generic.py's plain versions spell out the same orders.
 //
-// AXPY is the simple form: scalar reads, neighbouring threads on
-// neighbouring columns.
+// All three read V neighbouring stored values with one aligned access
+// (Range's row.load<V>/row.stream<V>: 16 bytes of storage, at most 32 bytes
+// of Ar values, so V = 4 for f32, 8 for bf16 and 4 for either under df64).
 //
-// The GEMV and the window sum read V neighbouring stored values with one
-// aligned access (Range's row.load<V>: 16 bytes of storage, at most 32 bytes
-// of Ar values, so V = 4 for f32, 8 for bf16 and 4 for either under df64),
-// and keep V fold slots a thread. A and the window, read once, go through
+// AXPY, elementwise and so free of order: the grid walks tiles of kThreads
+// x kAxpySteps x V columns of one row, the tile's base taken once; a thread
+// reads its kAxpySteps V-wide steps of x and y past L1 (row.stream<V>,
+// neighbouring threads on neighbouring 16 bytes) before it writes any, then
+// writes each step's V results with one evict-first vector store
+// (row.store_stream<V>: 32 bytes, two 16-byte stores, for bf16 in and f32
+// out). A row's last tile, where narrower, masks its ragged step.
+//
+// The GEMV and the window sum keep V fold slots a thread. A and the window, read once, go through
 // row.stream<V> (no L1 line), so that A's stream does not evict x. Both
 // load kSteps vector steps before they add one, and fold them in a binary
 // counter sized to the run (kLevelsVec levels: the host checks the depth).
@@ -52,12 +58,12 @@ namespace {
 
 constexpr int kThreads = 256;      // AXPY blocks, and T: window threads times V
 constexpr int kGemvWarps = 4;      // GEMV warps a block, one row a warp
-constexpr int kMaxBlocks = 1024;   // window blocks B: the last one folds them
+constexpr int kMaxBlocks = kScratchBlocks;  // window blocks B: the last one folds them
 constexpr int kStepsLog2 = 4;      // vector steps a thread loads before it adds one
 constexpr int kSteps = 1 << kStepsLog2;
 constexpr int kLevelsVec = 8;      // counter levels of the vector instantiations
 constexpr int kLevelsOne = 20;     // and of the V = 1 ones: 2^(L-1) pushes of kSteps
-constexpr int kUnroll = 4;         // AXPY columns a thread has in flight
+constexpr int kAxpySteps = 8;      // AXPY vector steps a thread loads before it writes one
 
 template <class Ar, class St>
 using in_t = range_t<Ar, const St>;
@@ -188,24 +194,76 @@ __device__ __forceinline__ DF load_l2(const DF* p) {
   return DF{v.x, v.y};
 }
 
-// o(i, j) = x(i, j) * alpha + y(i, j), grid-stride over rows (y) and columns
-// (x), kUnroll columns a thread in flight: all read before any is written
-template <class Ar, class SI, class SO>
+// columns an AXPY tile takes: a block's kAxpySteps steps of V
+template <int V>
+constexpr int kAxpyTile = kThreads * kAxpySteps * V;
+
+// o(i, j) = x(i, j) * alpha + y(i, j), a tile of one row a block (grid-stride
+// over the tiles, row by row): step s of thread t is columns (s kThreads +
+// t) V .. + V - 1 of the tile, all read before any is written
+template <int V, class Ar, class SI, class SO>
 __global__ void __launch_bounds__(kThreads)
     generic_axpy(in_t<Ar, SI> x, in_t<Ar, SI> y, range_t<Ar, SO> o, float alpha) {
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.y; i < o.length(0); i += gridDim.y) {
-    for (int64_t j0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         j0 < o.length(1); j0 += kUnroll * step) {
-      Ar v[kUnroll];
+  constexpr int kTile = kAxpyTile<V>;
+  const int64_t cols = o.length(1);
+  const int64_t per_row = (cols + kTile - 1) / kTile;
+  const int64_t tiles = o.length(0) * per_row;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t i = t / per_row;
+    const int64_t c0 = (t - i * per_row) * kTile;
+    const int width = static_cast<int>(cols - c0 < kTile ? cols - c0 : kTile);
+    const auto xr = x.window(i, c0, 1, width).row(0);
+    const auto yr = y.window(i, c0, 1, width).row(0);
+    const auto orow = o.window(i, c0, 1, width).row(0);
+    if (width == kTile) {
+      // the steps' stored values in flight, each widened only where used
+      using Row = std::remove_const_t<decltype(xr)>;
+      Pack<SI, V> xp[kAxpySteps], yp[kAxpySteps];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t j = j0 + u * step;
-        if (j < o.length(1)) v[u] = x(i, j) * alpha + y(i, j);
+      for (int s = 0; s < kAxpySteps; ++s) {
+        const int c = (s * kThreads + threadIdx.x) * V;
+        xp[s] = xr.template stream_pack<V>(c);
+        yp[s] = yr.template stream_pack<V>(c);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (j0 + u * step < o.length(1)) o(i, j0 + u * step) = v[u];
+      for (int s = 0; s < kAxpySteps; ++s) {
+        Ar xv[V], yv[V], v[V];
+        Row::widen(xp[s], xv);
+        Row::widen(yp[s], yv);
+#pragma unroll
+        for (int u = 0; u < V; ++u) v[u] = xv[u] * alpha + yv[u];
+        orow.store_stream((s * kThreads + threadIdx.x) * V, v);
+      }
+    } else {  // a row's narrower last tile: whole steps by vector, the ragged one by element
+      Ar xv[kAxpySteps][V], yv[kAxpySteps][V];
+#pragma unroll
+      for (int s = 0; s < kAxpySteps; ++s) {
+        const int c = (s * kThreads + threadIdx.x) * V;
+        if (c + V <= width) {
+          xr.stream(c, xv[s]);
+          yr.stream(c, yv[s]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            xv[s][u] = c + u < width ? static_cast<Ar>(xr(c + u)) : Ar{};
+            yv[s][u] = c + u < width ? static_cast<Ar>(yr(c + u)) : Ar{};
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kAxpySteps; ++s) {
+        const int c = (s * kThreads + threadIdx.x) * V;
+        Ar v[V];
+#pragma unroll
+        for (int u = 0; u < V; ++u) v[u] = xv[s][u] * alpha + yv[s][u];
+        if (c + V <= width) {
+          orow.store_stream(c, v);
+        } else {
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            if (c + u < width) orow(c + u) = v[u];
+          }
+        }
       }
     }
   }
@@ -337,11 +395,15 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 }  // namespace accblas
 
-// x, y: (rows, cols) of storage st_in with row strides sx, sy; o of st_out
+// The size in bytes of the scratch buffer accblas_window_sum takes.
+extern "C" int accblas_scratch_bytes() { return static_cast<int>(accblas::kScratchBytes); }
+
+// x, y: (rows, cols) of storage st_in with row strides sx, sy; o of st_out;
+// v = 1, or the pair's vector width with the bases and row strides of x, y
+// and o multiples of it. The grid is one block a tile, at most 2^20.
 extern "C" int accblas_generic_axpy(const void* x, int64_t sx, const void* y, int64_t sy,
                                     int st_in, void* o, int64_t so, int st_out, int64_t rows,
-                                    int64_t cols, int ar, float alpha, unsigned grid_x,
-                                    unsigned grid_y, void* stream) {
+                                    int64_t cols, int ar, float alpha, int v, void* stream) {
   using namespace accblas;
   return with_arith(ar, [&](auto ta) {
     using Ar = typename decltype(ta)::type;
@@ -352,8 +414,20 @@ extern "C" int accblas_generic_axpy(const void* x, int64_t sx, const void* y, in
         in_t<Ar, SI> rx(static_cast<const SI*>(x), rows, cols, sx);
         in_t<Ar, SI> ry(static_cast<const SI*>(y), rows, cols, sy);
         range_t<Ar, SO> ro(static_cast<SO*>(o), rows, cols, so);
-        generic_axpy<Ar, SI, SO><<<dim3(grid_x, grid_y), kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(rx, ry, ro, alpha);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        auto launch = [&](auto kern, int tile) {
+          const int64_t tiles = rows * ((cols + tile - 1) / tile);
+          const unsigned grid = static_cast<unsigned>(tiles < (1 << 20) ? tiles : 1 << 20);
+          kern<<<grid, kThreads, 0, s>>>(rx, ry, ro, alpha);
+        };
+        constexpr int kV = vec_of<Ar, SI>();
+        if (v == kV) {
+          launch(generic_axpy<kV, Ar, SI, SO>, kAxpyTile<kV>);
+        } else if (v == 1) {
+          launch(generic_axpy<1, Ar, SI, SO>, kAxpyTile<1>);
+        } else {
+          return cudaErrorInvalidValue;
+        }
         return cudaGetLastError();
       });
     });
@@ -367,7 +441,7 @@ extern "C" int accblas_generic_axpy(const void* x, int64_t sx, const void* y, in
 extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, const void* r,
                                     void* o, int st_in, int st_out, int64_t m, int64_t n,
                                     int ar, float alpha, float beta, int lanes, int log2_per,
-                                    int slots, int v, unsigned grid, void* stream) {
+                                    int slots, int v, void* stream) {
   using namespace accblas;
   return with_arith(ar, [&](auto ta) {
     using Ar = typename decltype(ta)::type;
@@ -380,6 +454,8 @@ extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, co
         in_t<Ar, SO> rr(static_cast<const SO*>(r), m, 1, 1);
         range_t<Ar, SO> ro(static_cast<SO*>(o), m, 1, 1);
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        const int64_t blocks = (m + kGemvWarps - 1) / kGemvWarps;  // one row a warp
+        const unsigned grid = static_cast<unsigned>(blocks < (1 << 20) ? blocks : 1 << 20);
         constexpr int kV = vec_of<Ar, SI>();
         if (v == kV) {
           generic_gemv<kV, kLevelsVec><<<grid, 32 * kGemvWarps, 0, s>>>(
@@ -398,18 +474,18 @@ extern "C" int accblas_generic_gemv(const void* a, int64_t sa, const void* x, co
 
 // the (m, n) window at (row0, col0) of a parent of storage st with row
 // stride `stride`, read as (K, B, T) = (2^log2_per, blocks, 2^log2_t) with
-// K B T = M 2^log2_n, blocks a power of two <= 1024; v = 1, or the pair's
-// vector width with the window's base and the stride aligned to it.
-// scratch: 1024 values of the arithmetic type (the block sums), then the
-// ticket counter, 0 before the first call
+// K B T = M 2^log2_n, blocks a power of two <= kMaxBlocks; v = 1, or the
+// pair's vector width with the window's base and the stride aligned to it.
+// scratch: accblas_scratch_bytes() bytes (the block sums, then the ticket
+// counter), its ticket 0 (and left at 0)
 extern "C" int accblas_window_sum(const void* parent, int st, int64_t stride, int64_t row0,
                                   int64_t col0, int64_t m, int64_t n, int ar, float* out,
                                   void* scratch, int log2_n, int blocks, int log2_t,
                                   int log2_per, int v, void* stream) {
   using namespace accblas;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* ticket =
-      reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + kMaxBlocks * sizeof(DF));
+  unsigned* ticket = scratch_ticket(scratch);
+  if (blocks > kMaxBlocks) return cudaErrorInvalidValue;
   return with_arith(ar, [&](auto ta) {
     using Ar = typename decltype(ta)::type;
     return with_storage(st, [&](auto ts) {

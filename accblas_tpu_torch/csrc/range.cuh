@@ -16,10 +16,15 @@
 // row's columns indexes it with 32-bit offsets, and row.load<V>(j, v) reads
 // the V stored values at columns j..j+V-1 as one aligned access (load_pack
 // of accessor.cuh), each widened to Ar as a single read is; row.stream<V>
-// is the same read with no L1 line allocated, for values read once. A
-// vector read needs the address of column j to be a multiple of V elements: for every
-// row, the range's base and its row stride both multiples of V elements.
-// There is no vector store.
+// is the same read with no L1 line allocated, for values read once
+// (row.stream_pack<V> and Row::widen its two halves).
+// row.store<V>(j, v) rounds V values to St as a single store does and writes
+// them at columns j..j+V-1 as one aligned access (store_pack; V x sizeof(St)
+// bytes, two 16-byte stores for 8 f32 values); row.store_stream<V> is the
+// same store marked evict-first, for values written once. A Row over const
+// St refuses either at compile time. A vector access needs the address of
+// column j to be a multiple of V elements: for every row, the range's base
+// and its row stride both multiples of V elements.
 //
 // With DF's operators (df64.cuh) a kernel body written once against Ranges
 // runs at f32 or df64 arithmetic over any storage type (csrc/generic.cu).
@@ -97,15 +102,43 @@ class Range {
     // the same read of values read once: no L1 line allocated
     template <int V>
     __device__ __forceinline__ void stream(int j, Ar (&v)[V]) const {
-      widen(load_pack_stream<std::remove_const_t<St>, V>(p_ + j), v);
+      widen(stream_pack<V>(j), v);
     }
-
-   private:
+    // its two halves: the V stored values as read, and their widening to
+    // Ar, for a kernel that keeps many reads in flight as stored values
+    template <int V>
+    __device__ __forceinline__ Pack<std::remove_const_t<St>, V> stream_pack(int j) const {
+      return load_pack_stream<std::remove_const_t<St>, V>(p_ + j);
+    }
     template <int V>
     __device__ __forceinline__ static void widen(const Pack<std::remove_const_t<St>, V>& pack,
                                                  Ar (&v)[V]) {
 #pragma unroll
       for (int u = 0; u < V; ++u) v[u] = Widen<Ar>::from(load_f32(pack.v[u]));
+    }
+    // columns j..j+V-1 set to v, each value rounded to St as r(i, j) = v
+    // rounds it, written as one aligned access (j's address a multiple of V
+    // elements)
+    template <int V>
+    __device__ __forceinline__ void store(int j, const Ar (&v)[V]) const {
+      static_assert(!std::is_const_v<St>, "store through a const Range");
+      store_pack<St, V>(p_ + j, narrow(v));
+    }
+    // the same store of values written once: evict-first (st.global.cs)
+    template <int V>
+    __device__ __forceinline__ void store_stream(int j, const Ar (&v)[V]) const {
+      static_assert(!std::is_const_v<St>, "store through a const Range");
+      store_pack_stream<St, V>(p_ + j, narrow(v));
+    }
+
+   private:
+    template <int V>
+    __device__ __forceinline__ static Pack<std::remove_const_t<St>, V> narrow(
+        const Ar (&v)[V]) {
+      Pack<std::remove_const_t<St>, V> pack;
+#pragma unroll
+      for (int u = 0; u < V; ++u) store_f32(&pack.v[u], to_float(v[u]));
+      return pack;
     }
 
     St* p_;

@@ -11,9 +11,24 @@
 
 namespace accblas {
 
+// The scratch of a kernel that folds across blocks in one launch (the DOT,
+// the window sum): kScratchBlocks block partials of 8 bytes (a DF, or a
+// float and a 0), then the ticket counter that finds the last block, 0
+// before and after every launch. ops/_build.py's scratch() makes one such
+// buffer a (device, stream); accblas_scratch_bytes() reports its size.
+constexpr int kScratchBlocks = 1024;
+constexpr int64_t kScratchBytes = kScratchBlocks * 8 + 4;
+
+__host__ __device__ inline unsigned* scratch_ticket(void* scratch) {
+  return reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + kScratchBlocks * 8);
+}
+
 __host__ __device__ constexpr bool is_df_tier(int tier) {
   return tier == TIER_DF_FAST || tier == TIER_DF_PRECISE;
 }
+
+// log2 of a power of two
+__host__ __device__ constexpr int log2_of(int k) { return k <= 1 ? 0 : 1 + log2_of(k / 2); }
 
 template <int TIER>
 using value_t = std::conditional_t<is_df_tier(TIER), DF, float>;
@@ -69,9 +84,18 @@ __device__ __forceinline__ value_t<TIER> block_reduce(value_t<TIER> v) {
   return v;
 }
 
+// convert one vector step of storage values to floats (exact)
+template <class S, int V>
+__device__ __forceinline__ void unpack(const Pack<S, V>& pk, float (&out)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) out[j] = load_f32(pk.v[j]);
+}
+
 // ---- per-thread accumulation of products x*y over V lanes ----
 // add(j, x, y) feeds lane j; add_vec feeds one vector step (lane j takes
-// element j); result() folds the lanes into one value of the tier.
+// element j); add_steps<K> feeds K vector steps of stored values (packs, as
+// loaded), in order, with the bits of K add_vec calls; result() folds the
+// lanes into one value of the tier.
 
 // bf16/f16 fixed tiers: operands and products rounded to the arithmetic
 // type, every add rounded too. Sums are pairwise: each vector step is
@@ -86,10 +110,13 @@ struct ThreadAcc {
   __device__ __forceinline__ static float prod(float x, float y) {
     return round_ar<TIER>(__fmul_rn(round_ar<TIER>(x), round_ar<TIER>(y)));
   }
+  // v, the sum of 2^L pushes, enters at level L (the count a multiple of
+  // 2^L): the same levels and bits as those 2^L pushes
+  template <int L = 0>
   __device__ __forceinline__ void push(float v) {
     bool carry = true;
 #pragma unroll
-    for (int l = 0; l < 32; ++l) {
+    for (int l = L; l < 32; ++l) {
       if (carry) {
         if ((cnt >> l) & 1u) {
           v = round_ar<TIER>(__fadd_rn(stk[l], v));
@@ -99,10 +126,9 @@ struct ThreadAcc {
         }
       }
     }
-    ++cnt;
+    cnt += 1u << L;
   }
-  __device__ __forceinline__ void add(int, float x, float y) { push(prod(x, y)); }
-  __device__ __forceinline__ void add_vec(const float (&x)[V], const float (&y)[V]) {
+  __device__ __forceinline__ static float step_sum(const float (&x)[V], const float (&y)[V]) {
     float p[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) p[j] = prod(x[j], y[j]);
@@ -111,7 +137,32 @@ struct ThreadAcc {
 #pragma unroll
       for (int j = 0; j < w; ++j) p[j] = round_ar<TIER>(__fadd_rn(p[j], p[j + w]));
     }
-    push(p[0]);
+    return p[0];
+  }
+  __device__ __forceinline__ void add(int, float x, float y) { push(prod(x, y)); }
+  __device__ __forceinline__ void add_vec(const float (&x)[V], const float (&y)[V]) {
+    push(step_sum(x, y));
+  }
+  // the K step sums folded as the counter folds K pushes (step s meets s +
+  // w for w = 1, 2, ..., the earlier on the left), entering at level log2 K:
+  // one carry chain for K steps. The count must be a multiple of K.
+  template <int K, class SX, class SY>
+  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
+                                            const Pack<SY, V> (&y)[K]) {
+    float p[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      float xv[V], yv[V];
+      unpack(x[s], xv);
+      unpack(y[s], yv);
+      p[s] = step_sum(xv, yv);
+    }
+#pragma unroll
+    for (int w = 1; w < K; w <<= 1) {
+#pragma unroll
+      for (int r = 0; r < K; r += 2 * w) p[r] = round_ar<TIER>(__fadd_rn(p[r], p[r + w]));
+    }
+    push<log2_of(K)>(p[0]);
   }
   __device__ __forceinline__ float result() const {
     float s = 0.f;
@@ -134,6 +185,17 @@ struct ThreadAcc<TIER_F32, V> {
   __device__ __forceinline__ void add_vec(const float (&x)[V], const float (&y)[V]) {
 #pragma unroll
     for (int j = 0; j < V; ++j) add(j, x[j], y[j]);
+  }
+  template <int K, class SX, class SY>
+  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
+                                            const Pack<SY, V> (&y)[K]) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      float xv[V], yv[V];
+      unpack(x[s], xv);
+      unpack(y[s], yv);
+      add_vec(xv, yv);
+    }
   }
   __device__ __forceinline__ float result() const {
     float r[V];
@@ -177,6 +239,17 @@ struct DFChains {
 #pragma unroll
     for (int j = 0; j < V; ++j) add(j, x[j], y[j]);
   }
+  template <int K, class SX, class SY>
+  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
+                                            const Pack<SY, V> (&y)[K]) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      float xv[V], yv[V];
+      unpack(x[s], xv);
+      unpack(y[s], yv);
+      add_vec(xv, yv);
+    }
+  }
   __device__ __forceinline__ DF result() const {
     DF r[V];
 #pragma unroll
@@ -194,12 +267,5 @@ template <int V>
 struct ThreadAcc<TIER_DF_FAST, V> : DFChains<TIER_DF_FAST, V> {};
 template <int V>
 struct ThreadAcc<TIER_DF_PRECISE, V> : DFChains<TIER_DF_PRECISE, V> {};
-
-// convert one vector step of storage values to floats (exact)
-template <class S, int V>
-__device__ __forceinline__ void unpack(const Pack<S, V>& pk, float (&out)[V]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) out[j] = load_f32(pk.v[j]);
-}
 
 }  // namespace accblas

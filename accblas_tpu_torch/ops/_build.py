@@ -137,6 +137,26 @@ def stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+# the scratch of the kernels that fold across blocks in one launch (the DOT,
+# the window sum): 1024 block partials of 8 bytes, then the ticket counter
+# that finds the last block (csrc/reduce.cuh kScratchBytes, which each
+# library reports as accblas_scratch_bytes())
+SCRATCH_BYTES = 1024 * 8 + 4
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def scratch(t: torch.Tensor, stream: int) -> int:
+    """The address of the scratch buffer of stream `stream` of t's device,
+    made (zeroed) at its first use. One buffer a (device, stream): the calls
+    on a stream use it in stream order, and each call leaves its ticket at
+    0 for the next."""
+    key = (t.get_device(), stream)
+    buf = _scratch.get(key)
+    if buf is None:  # zeroed on the current stream, `stream`, before its first call
+        buf = _scratch[key] = t.new_zeros(SCRATCH_BYTES, dtype=torch.uint8)
+    return buf.data_ptr()
+
+
 _CURRENT = contextlib.nullcontext()
 
 

@@ -8,8 +8,12 @@
 - ``xla_dot``: the vendor tier, ``torch.dot``.
 
 A CUDA tensor runs the hand-written kernel of ``csrc/dot.cu`` (which
-replaces the Pallas kernel ``accblas_tpu.ops.dot._dot_kernel``); a CPU tensor
-runs ``_dot_plain``, the same function in plain torch ops. Nothing falls back
+replaces the Pallas kernel ``accblas_tpu.ops.dot._dot_kernel``), one launch a
+call: each check is taken once, one ctypes call launches it, and its one
+allocation is the result it returns, hi alone for the tiers whose lo is 0
+(the block partials and the ticket live in the stream's scratch,
+``_build.scratch``). A CPU tensor runs
+``_dot_plain``, the same function in plain torch ops. Nothing falls back
 from one to the other. Counterpart of ``accblas_tpu.ops.dot``.
 """
 
@@ -27,17 +31,16 @@ from .common import pow2_tree_sum, route
 # launches of the DOT kernel, counted where the wrapper launches it
 launches = 0
 
-_THREADS = 256  # csrc/dot.cu kThreads
-_MAX_BLOCKS = 1024  # one wave of 256-thread blocks on the card, fixed so results repeat
+# the arithmetic types of the tiers, by their canonical names
+_TIER_AR = ("f32", "bf16", "f16", "df64")
 # lanes of the plain bf16/f16 tiers: the reference kernel's (16, 128)
 # accumulator tile, element i summing into lane i % 2048
 _NARROW_LANES = 2048
 
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_void_p, ctypes.c_void_p,
-]
+# x, y, n, codes (x's storage | y's << 4 | tier << 8 | 16-byte aligned << 12),
+# init, scratch, hi, lo, stream (csrc/dot.cu accblas_dot)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _dot_plain(x: torch.Tensor, y: torch.Tensor, tier: str, init: float):
@@ -63,27 +66,25 @@ def _dot_plain(x: torch.Tensor, y: torch.Tensor, tier: str, init: float):
     return total.to(ar_dt).float(), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _dot_cuda(x: torch.Tensor, y: torch.Tensor, tier: str, init: float):
-    """Launch the csrc/dot.cu kernel on the current stream: (hi, lo)."""
+def _dot_cuda(x: torch.Tensor, y: torch.Tensor, codes: int, init: float, df: bool):
+    """Launch the csrc/dot.cu kernel on the current stream of x's device, x
+    and y checked but for contiguity; `codes` holds the storage and tier
+    codes. Returns (hi, lo): for a df64 tier the two elements of one fresh
+    (2,) tensor, else a fresh 0-d hi and None (lo is 0)."""
     global launches
-    sx = _build.storage_code(x, "dot x")
-    sy = _build.storage_code(y, "dot y")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("dot kernel needs contiguous vectors")
-    n = x.shape[0]
-    vec = 16 // max(x.element_size(), y.element_size())
-    vec_ok = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    work = n // vec if vec_ok else n
-    nblocks = max(1, min(_MAX_BLOCKS, -(-work // _THREADS)))
+    px, py = x.data_ptr(), y.data_ptr()
+    out = x.new_empty(2 if df else (), dtype=torch.float32)
+    hi = out.data_ptr()
     fn = _build.function("dot", "accblas_dot", _ARGTYPES)
-    partials = torch.empty(2 * nblocks, dtype=torch.float32, device=x.device)
-    out = torch.empty(2, dtype=torch.float32, device=x.device)
     with _build.on_device(x):
-        err = fn(x.data_ptr(), sx, y.data_ptr(), sy, n, _build.TIER_CODE[tier], int(vec_ok),
-                 init, partials.data_ptr(), nblocks, out.data_ptr(), _build.stream(x))
+        stream = _build.stream(x)
+        err = fn(px, py, x.shape[0], codes | ((px | py) % 16 == 0) << 12, init,
+                 _build.scratch(x, stream), hi, hi + 4 if df else None, stream)
     _build.check(err, "dot kernel launch")
     launches += 1
-    return out[0], out[1]
+    return out.unbind() if df else (out, None)
 
 
 def _dot_call(x, y, ar: str, precise: bool, init):
@@ -91,11 +92,12 @@ def _dot_call(x, y, ar: str, precise: bool, init):
         raise ValueError(f"dot expects equal-length vectors, got {tuple(x.shape)} "
                          f"{tuple(y.shape)}")
     tier = _build.tier(ar, precise, "dot")
-    _build.storage_code(x, "dot x")
-    _build.storage_code(y, "dot y")
+    codes = (_build.storage_code(x, "dot x") | _build.storage_code(y, "dot y") << 4
+             | _build.TIER_CODE[tier] << 8)
     init = 0.0 if init is None else float(init)
-    if route("dot", x, y) == "cuda":
-        return _dot_cuda(x, y, tier, init)
+    if x.is_cuda and y.is_cuda and x.get_device() == y.get_device() \
+            or route("dot", x, y) == "cuda":
+        return _dot_cuda(x, y, codes, init, tier.startswith("df64"))
     return _dot_plain(x, y, tier, init)
 
 
@@ -109,7 +111,7 @@ def dot(x, y, *, init=None):
         )
     ar = dtypes.check_arithmetic(x.dtype)  # f8 storage has no fixed tier
     hi, _ = _dot_call(x, y, ar, False, init)
-    return hi.to(dtypes.torch_dtype(ar))
+    return hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
 
 
 def acc_dot(x, y, ar="df64", *, precise: bool = False, res_dtype=None, init=None):
@@ -122,7 +124,8 @@ def acc_dot(x, y, ar="df64", *, precise: bool = False, res_dtype=None, init=None
     df64, else a 0-d tensor of the arithmetic dtype; `res_dtype` requests a
     final cast ('f64' keeps the full df64 width).
     """
-    ar = dtypes.check_arithmetic(ar)
+    if ar not in _TIER_AR:  # the canonical names pass as they are
+        ar = dtypes.check_arithmetic(ar)
     hi, lo = _dot_call(x, y, ar, precise, init)
     if ar == "df64":
         out = dfm.DF(hi, lo)
@@ -132,7 +135,7 @@ def acc_dot(x, y, ar="df64", *, precise: bool = False, res_dtype=None, init=None
         if rd == "f64":
             return dfm.df_to_f64(out)
         return dfm.df_to_f32(out).to(dtypes.torch_dtype(rd))
-    out = hi.to(dtypes.torch_dtype(ar))
+    out = hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
     if res_dtype is not None:
         out = out.to(dtypes.torch_dtype(res_dtype))
     return out

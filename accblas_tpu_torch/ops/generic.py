@@ -23,12 +23,13 @@ run in the kernels' order:
   the kernel's threads (each holding V neighbouring t), blocks and the last
   block's fold of the block sums.
 
-The GEMV and the window sum read V neighbouring stored values at once
-(``vector_width``: 4 for f32, 8 for bf16, 4 under df64) where the operands'
-bases and row strides are multiples of V elements and the fold fits the
-vector instantiation's counter; elsewhere they launch the V = 1
-instantiation of the same body (``gemv_vector``, ``window_vector``). The
-sums' order, and so their bits, do not depend on V.
+All three kernels read V neighbouring stored values at once
+(``vector_width``: 4 for f32, 8 for bf16, 4 under df64), and AXPY writes its
+V results at once, where the operands' bases and row strides are multiples
+of V elements (and, for the sums, the fold fits the vector instantiation's
+counter); elsewhere they launch the V = 1 instantiation of the same body
+(``axpy_vector``, ``gemv_vector``, ``window_vector``). The sums' order, and
+so their bits, do not depend on V.
 """
 
 from __future__ import annotations
@@ -50,28 +51,26 @@ window_launches = 0
 
 # arithmetic codes (csrc/range.cuh)
 AR_CODE = {"f32": 0, "df64": 1}
+# the torch dtype of each kernel storage type, for an output
+_OUT_DTYPE = {name: dtypes.torch_dtype(name) for name in _build.STORAGE_CODE}
 
-_THREADS = 256  # threads of an AXPY block
 _WINDOW_T = 256  # T of the window's (K, B, T): a block's threads times V
-_GEMV_ROWS = 4  # GEMV rows a block, one a warp (csrc/generic.cu kGemvWarps)
-_MAX_BLOCKS = 1024  # window blocks B, whose sums the last block folds
-_AXPY_UNROLL = 4  # AXPY columns a thread has in flight (csrc/generic.cu kUnroll)
+# window blocks B, whose sums the last block folds: the scratch's partials
+# (csrc/reduce.cuh kScratchBlocks; the launcher refuses more)
+_MAX_BLOCKS = 1024
 # log2 of the steps a fold slot takes at most (csrc/generic.cu): kSteps at a
 # time into a binary counter of kLevelsVec = 8 levels (the vector
 # instantiation, True) or kLevelsOne = 20 (V = 1, False)
 _STEPS = 16
 _LOG2_MAX_PER = {True: _STEPS.bit_length() - 1 + 7, False: _STEPS.bit_length() - 1 + 19}
-# the window's scratch: the block sums (df64 is two floats a sum), then the
-# ticket counter of the last block (csrc/generic.cu accblas_window_sum)
-_SCRATCH_FLOATS = 2 * _MAX_BLOCKS + 1
 
 _AXPY_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-              ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _GEMV_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
               ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _WINDOW_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -110,8 +109,8 @@ def _log2(v: int) -> int:
 
 
 def vector_width(dtype: torch.dtype, ar: str) -> int:
-    """Stored values one vector read of the GEMV and the window sum takes
-    for storage `dtype`: 16 bytes of storage, at most 32 bytes of arithmetic
+    """Stored values one vector read of the generic kernels takes for
+    storage `dtype`: 16 bytes of storage, at most 32 bytes of arithmetic
     values (a fold slot each), as csrc/generic.cu's vec_of."""
     return min(16 // dtype.itemsize, 32 // (8 if ar == "df64" else 4))
 
@@ -121,6 +120,12 @@ def _aligned(v: int, t: torch.Tensor, offset: int = 0, stride: int = 0) -> bool:
     at a multiple of v elements (v elements of t's dtype)."""
     size = t.element_size()
     return stride % v == 0 and (t.data_ptr() + offset * size) % (v * size) == 0
+
+
+def _rows_aligned(v: int, t: torch.Tensor) -> bool:
+    """Whether every row of 2-D t starts at a multiple of v elements: its
+    base, and its row stride where it has more than one row."""
+    return _aligned(v, t, 0, t.stride(0) if t.shape[0] > 1 else 0)
 
 
 # ---------------------------------------------------------------- AXPY
@@ -135,19 +140,24 @@ def _axpy_plain(x, y, ar: str, out_st: str, alpha: float):
     return out
 
 
-def _axpy_cuda(x, y, ar: str, out_st: str, alpha: float):
+def axpy_vector(x, y, out, ar: str) -> int:
+    """V of the AXPY instantiation the wrapper launches for x, y and its
+    output `out`: the vector width of x's storage where every row of x, y
+    and out starts at a multiple of it, else 1 (the GEMV's rule for A)."""
+    v = vector_width(x.dtype, ar)
+    return v if all(_rows_aligned(v, t) for t in (x, y, out)) else 1
+
+
+def _axpy_cuda(x, y, ar: str, st: int, out_st: str, alpha: float):
     global axpy_launches
     rows, cols = x.shape
-    out = torch.empty((rows, cols), dtype=dtypes.torch_dtype(out_st), device=x.device)
+    out = x.new_empty((rows, cols), dtype=_OUT_DTYPE[out_st])
     if rows and cols:
-        grid_x = min(-(-cols // (_THREADS * _AXPY_UNROLL)), 2048)
-        grid_y = min(rows, max(1, 2048 // grid_x), 65535)
         fn = _build.function("generic", "accblas_generic_axpy", _AXPY_ARGS)
         with _build.on_device(x):
-            err = fn(x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0),
-                     _build.STORAGE_CODE[_storage(x, "axpy x")], out.data_ptr(), out.stride(0),
-                     _build.STORAGE_CODE[out_st], rows, cols, AR_CODE[ar], alpha, grid_x,
-                     grid_y, _build.stream(x))
+            err = fn(x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), st, out.data_ptr(),
+                     out.stride(0), _build.STORAGE_CODE[out_st], rows, cols, AR_CODE[ar], alpha,
+                     axpy_vector(x, y, out, ar), _build.stream(x))
         _build.check(err, "generic_axpy kernel launch")
         axpy_launches += 1
     return out
@@ -157,14 +167,15 @@ def axpy(x, y, ar, out_st, alpha=2.0):
     """x * alpha + y over 2-D x and y of one storage type, in arithmetic
     `ar` ('f32' or 'df64'), stored as `out_st`."""
     ar, out_st = _arith(ar), _storage(out_st, "axpy out_st")
-    _storage(x, "axpy x")
+    st = _build.STORAGE_CODE[_storage(x, "axpy x")]
     if x.dtype != y.dtype or x.shape != y.shape:
         raise ValueError(f"axpy: x and y need one dtype and shape, got {x.dtype} "
                          f"{tuple(x.shape)} and {y.dtype} {tuple(y.shape)}")
     _rows(x, "axpy x")
     _rows(y, "axpy y")
-    if route("axpy", x, y) == "cuda":
-        return _axpy_cuda(x, y, ar, out_st, float(alpha))
+    if x.is_cuda and y.is_cuda and x.get_device() == y.get_device() \
+            or route("axpy", x, y) == "cuda":
+        return _axpy_cuda(x, y, ar, st, out_st, float(alpha))
     return _axpy_plain(x, y, ar, out_st, float(alpha))
 
 
@@ -203,8 +214,7 @@ def _gemv_plan(a, x, ar: str) -> tuple[int, int, int, int]:
     n = a.shape[1]
     v = vector_width(a.dtype, ar)
     split = _gemv_split(n, v)
-    if not (split[1] <= _LOG2_MAX_PER[True] and _aligned(v, x)
-            and _aligned(v, a, 0, a.stride(0) if a.shape[0] > 1 else 0)):
+    if not (split[1] <= _LOG2_MAX_PER[True] and _aligned(v, x) and _rows_aligned(v, a)):
         v, split = 1, _gemv_split(n, 1)
         if split[1] > _LOG2_MAX_PER[False] or n >= 2**30:
             raise ValueError(f"gemv_generic: n = {n} is past the kernel's fold")
@@ -228,7 +238,7 @@ def _gemv_generic_cuda(a, x, r, ar: str, out_st: str, alpha: float, beta: float,
         with _build.on_device(a):
             err = fn(a.data_ptr(), a.stride(0), x.data_ptr(), r.data_ptr(), out.data_ptr(),
                      st, _build.STORAGE_CODE[out_st], m, n, AR_CODE[ar], alpha, beta, lanes,
-                     log2_per, slots, v, min(-(-m // _GEMV_ROWS), 2**20), _build.stream(a))
+                     log2_per, slots, v, _build.stream(a))
         _build.check(err, "generic_gemv kernel launch")
         gemv_launches += 1
     return out
@@ -296,21 +306,6 @@ def _window_sum_plain(parent, row0: int, col0: int, m: int, n: int, ar: str):
     return out
 
 
-# the window sum's scratch buffers, one a (device, stream): calls on a
-# stream use theirs in stream order, and each call leaves its ticket at 0
-_scratch: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _window_scratch(parent, stream: int) -> int:
-    """The address of the scratch buffer of the stream `stream` of parent's
-    device."""
-    key = (parent.get_device(), stream)
-    buf = _scratch.get(key)
-    if buf is None:  # zeroed on that stream, before its first call
-        buf = _scratch[key] = parent.new_zeros(_SCRATCH_FLOATS, dtype=torch.float32)
-    return buf.data_ptr()
-
-
 def _window_sum_cuda(parent, row0: int, col0: int, m: int, n: int, ar: str, st: int):
     global window_launches
     log2_n, blocks, threads, log2_per = _window_split(m, n)
@@ -320,7 +315,7 @@ def _window_sum_cuda(parent, row0: int, col0: int, m: int, n: int, ar: str, st: 
     with _build.on_device(parent):
         stream = _build.stream(parent)
         err = fn(parent.data_ptr(), st, parent.stride(0), row0, col0, m, n, AR_CODE[ar],
-                 out.data_ptr(), _window_scratch(parent, stream), log2_n, blocks,
+                 out.data_ptr(), _build.scratch(parent, stream), log2_n, blocks,
                  _log2(threads), log2_per, v, stream)
     _build.check(err, "window_sum kernel launch")
     window_launches += 1

@@ -6,9 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
-     prints ptxas' registers and spills of the GEMV kernel's instantiations,
-     of the draw and column-sum kernels' and of the generic GEMV's and
-     window sum's at the three generic pairings;
+     prints ptxas' registers and spills of the GEMV and DOT kernels'
+     instantiations, of the draw and column-sum kernels' and of the generic
+     AXPY's, GEMV's and window sum's at the three generic pairings;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -39,6 +39,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      that computes the same function, where there is one, at the main-path
      shapes (1 warm-up, 10 reps, minimum, CUDA events), beside the least time
      the card could take (bytes over 3.35 TB/s or f32 flops over 67 TFLOP/s);
+     for the DOT (Acc<f32,bf16> at 2^29, here, and Acc<f32,f32> at 2^27,
+     in the f8 probe phase) where a call's time goes, beside torch.dot
+     ("split dot" lines: event and device ms, host us of the call and of
+     its checks, allocation, scratch lookup and ctypes call;
+     the DOT is one launch, dot_reduce, a call);
      for GEMV (Acc<f32,bf16>, fixed f32 and Acc<df64,bf16> at 16384^2, and
      the flagship) where a call's time goes, beside torch.mv: device time
      from torch.profiler, and host microseconds of the call, of torch.mv, of
@@ -48,7 +53,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   generic: the three kernels of csrc/generic.cu, each written once against
      the device Range, at f32/f32, bf16 storage with f32 arithmetic and
      f32 storage with df64 arithmetic, on operands drawn by the draw
-     kernel: generic_axpy over a (16384, 32768) range, generic_gemv at
+     kernel: generic_axpy over a (16384, 32768) range and over its
+     (16384, 32767) window one column on, generic_gemv at
      16384^2, at 16383 x 16385 and at 16384^2 one element off, window_sum
      over the (8192, 16384) window at (4096, 8192) of a (16384, 32768)
      parent and the same window one column on; each against its plain
@@ -57,10 +63,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      GEMV and window within the f32 tier's bound), the V each call takes
      logged (the vector read where the operands are aligned, else V = 1),
      then timed beside its bytes bound, its plain version, acc_gemv for the
-     same GEMV and the PyTorch call for the same f32 function ("time
-     generic_..." lines, with the V = 1 instantiation's time one element
-     off), and split into event ms, device ms and host us a call ("split"
-     lines); the generic GEMV's and window sum's instantiations at the
+     same GEMV and the PyTorch call for the same f32 function (AXPY f32
+     in turns with torch.add: call, library, library, call) ("time
+     generic_..." lines, with the V = 1 instantiation's time on the
+     unaligned operands), and split into event ms, device ms and host us a
+     call ("split" lines); the generic kernels' instantiations at the
      three pairings must show no ptxas spill; the three kernels' counters
      are reset before the phase and must each have launched;
   f8 probe: the port of scripts/probe_r4a.py through its entry point
@@ -202,6 +209,7 @@ def phase_build():
     paths = _build.build()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
+    log_ptxas("dot_reduce", _build.build_log("dot"))
     for lib in ("devgen", "colsum"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
@@ -231,9 +239,10 @@ def ptxas_entries(text: str) -> dict:
 
 
 def generic_ptxas() -> dict:
-    """Registers and spill bytes of the generic GEMV's and window sum's
-    instantiations at the three generic pairings (f32 output), both V, by
-    their template arguments <V, levels, Ar, storage[, output]>."""
+    """Registers and spill bytes of the generic kernels' instantiations at
+    the three generic pairings (f32 output), both V, by their template
+    arguments: GEMV and window sum <V, levels, Ar, storage[, output]>, AXPY
+    <V, Ar, storage, output>."""
     from accblas_tpu_torch.ops import _build
 
     out = {}
@@ -243,8 +252,11 @@ def generic_ptxas() -> dict:
         if m and (m.group(4), m.group(5)) in GENERIC_PTXAS_PAIRS \
                 and m.group(6) in (None, ", float"):
             out[m.group(0)] = tuple(rs)
-    if len(out) != 12:
-        raise AssertionError(f"ptxas: {len(out)} of the 12 generic GEMV and window "
+        m = re.search(r"generic_axpy<(\d+), ([\w:]+), ([\w:]+), float>", pretty)
+        if m and (m.group(2), m.group(3)) in GENERIC_PTXAS_PAIRS:
+            out[m.group(0)] = tuple(rs)
+    if len(out) != 18:
+        raise AssertionError(f"ptxas: {len(out)} of the 18 generic AXPY, GEMV and window "
                              f"instantiations found in the build log")
     return out
 
@@ -690,16 +702,16 @@ def phase_main() -> list[dict]:
     dot_lib_ms = benchmark_function(lambda: torch.dot(xb, yb))
     dot_bytes = N_DOT * (2 + 2)
     dot_bound, dot_by = bound(dot_bytes, 2 * N_DOT)
-    # both passes of the DOT count as one launch of its wrapper
+    # one launch of dot_reduce a call
     dot_prof, *_ = profile_calls(f"dot Acc<f32,bf16> n={N_DOT}", dot_k,
-                                {k: lambda: dotops.launches for k in ("dot_partials",
-                                                                      "dot_finish")})
-    dot_dev_ms = sum(ms for ms, _ in dot_prof.values())
+                                {"dot_reduce": lambda: dotops.launches})
+    dot_dev_ms = dot_prof["dot_reduce"][0]
     log(f"time dot Acc<f32,bf16> n={N_DOT}: kernel {dot_ms:.4f} ms "
         f"{2 * N_DOT / dot_ms / 1e6:.1f} GFLOP/s {dot_bytes / dot_ms / 1e6:.1f} GB/s, device "
         f"{dot_dev_ms:.4f} ms ({dot_bound / dot_dev_ms:.1%} of the bound) | plain "
         f"{dot_plain_ms:.4f} ms | library torch.dot bf16 {dot_lib_ms:.4f} ms | bound "
         f"{dot_bound:.4f} ms")
+    dot_split(f"Acc<f32,bf16> n={N_DOT}", dot_k, lambda: torch.dot(xb, yb))
 
     # GEMV: the main path's tier and the tiers the TPU served with its
     # full-row kernel at 16384^2, and the flagship; torch.mv computes the
@@ -741,7 +753,7 @@ def phase_main() -> list[dict]:
          "replaces": "accblas_tpu/ops/dot.py:136", "launches": launches["dot"],
          "max_abs_err": max_abs["dot"], "ms": dot_ms, "plain_ms": dot_plain_ms,
          "bound_ms": dot_bound, "bound_by": dot_by, "library_ms": dot_lib_ms,
-         "device_ms": dot_dev_ms},
+         "device_ms": dot_dev_ms, "kernel": "dot_reduce, one launch a call"},
         {"name": "gemv", "route": "cuda", "source": "accblas_tpu_torch/csrc/gemv.cu",
          "replaces": "accblas_tpu/ops/gemv.py:147", "launches": launches["gemv"],
          "max_abs_err": max_abs["gemv"], "ms": gemv["main"]["ms"],
@@ -891,17 +903,52 @@ def _bare_launch(call):
     return fn, args, out
 
 
-def _checks_only_us(call) -> float:
-    """Host us of a GEMV call with its launch (`_gemv_cuda`) stubbed out:
-    the public function's checks and dispatch alone."""
-    from accblas_tpu_torch.ops import gemv as gemvops
+def _checks_only_us(call, module=None, name: str = "_gemv_cuda", result=None) -> float:
+    """Host us of a call with its launch (`module.name`, the GEMV's
+    `_gemv_cuda` by default) stubbed out to return `result`: the public
+    function's checks and dispatch alone."""
+    if module is None:
+        from accblas_tpu_torch.ops import gemv as module
 
-    real = gemvops._gemv_cuda
-    gemvops._gemv_cuda = lambda *args: None
+    real = getattr(module, name)
+    setattr(module, name, lambda *args: result)
     try:
         return host_us(call)
     finally:
-        gemvops._gemv_cuda = real
+        setattr(module, name, real)
+
+
+def dot_split(label: str, call, lib) -> dict:
+    """Where a DOT call's time goes, beside torch.dot on the same operands
+    ("split dot" line): CUDA-event minima of the call and of torch.dot in
+    turns (call, torch.dot, torch.dot, call); device ms a call from
+    torch.profiler (dot_reduce, one record a call; torch.dot's kernels);
+    host us a call of the call, of torch.dot, and of its parts: the checks
+    alone (the launch, `_dot_cuda`, stubbed), the one allocation (a 0-d
+    new_empty: the f32 tier returns hi alone), the scratch lookup and the
+    bare ctypes call with its arguments prepared (one launch)."""
+    from accblas_tpu_torch.ops import _build
+    from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    t = [benchmark_function(f) for f in (call, lib, lib, call)]
+    ms, lib_ms = min(t[0], t[3]), min(t[1], t[2])
+    prof, *_ = profile_calls(f"dot {label}", call, {"dot_reduce": lambda: dotops.launches})
+    dev_ms = prof["dot_reduce"][0]
+    lib_dev = profile_calls(f"torch.dot {label}", lib, {})[1]
+    fn, args, _res = _bare_launch(call)
+    out = torch.zeros((), device="cuda")
+    stream = _build.stream(out)
+    host = {"call": host_us(call), "torch.dot": host_us(lib),
+            "checks": _checks_only_us(call, dotops, "_dot_cuda", (out, None)),
+            "new_empty": host_us(lambda: out.new_empty((), dtype=torch.float32)),
+            "scratch": host_us(lambda: _build.scratch(out, stream)),
+            "ctypes": host_us(lambda: fn(*args))}
+    log(f"split dot {label}: event ms kernel {ms:.4f} library {lib_ms:.4f} | device ms "
+        f"dot_reduce {dev_ms:.4f} library {lib_dev:.4f} | host us "
+        + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+    return {"ms": ms, "library_ms": lib_ms, "device_ms": dev_ms, "library_device_ms": lib_dev,
+            "host_us": host}
 
 
 def gemv_split(label: str, call, plain, lib, m: int, dev) -> dict:
@@ -1187,8 +1234,8 @@ def phase_generic() -> list[dict]:
     dev = torch.device("cuda", 0)
     chk = Checks()
     spills = {name: spill for name, (_, spill) in generic_ptxas().items()}
-    chk.record(not any(spills.values()), f"generic: ptxas spill bytes of the GEMV and window "
-                                         f"instantiations at the three pairings: {spills}")
+    chk.record(not any(spills.values()), f"generic: ptxas spill bytes of the AXPY, GEMV and "
+                                         f"window instantiations at the three pairings: {spills}")
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     x32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_x", device=dev)
     y32 = devgen.gen_f32(GENERIC_SHAPE, SEED, "generic_y", device=dev)
@@ -1223,25 +1270,37 @@ def phase_generic() -> list[dict]:
         vec = gen.vector_width(x.dtype, ar)
         flops = GENERIC_FLOPS[ar]
 
-        # ---- AXPY: one rounding an element, so correctly rounded ----
-        label = f"axpy {pair} {GENERIC_SHAPE}"
-        got = gen.axpy(x, y, ar, "f32")
-        torch.cuda.synchronize()
-        ref = 2.0 * x.double() + y.double()
-        err = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max())
-        del ref
-        compare("axpy", label, got, gen._axpy_plain(x, y, ar, "f32", 2.0), err, 2.0**-24)
-        del got
+        # ---- AXPY: one rounding an element, so correctly rounded; the
+        # range, which the vector instantiation reads and writes, then the
+        # window one column on, which the V = 1 instantiation takes ----
+        for c0 in (0, 1):
+            xs, ys = x[:, c0:], y[:, c0:]
+            label = f"axpy {pair} {tuple(xs.shape)} at column {c0} of {GENERIC_SHAPE}"
+            got = gen.axpy(xs, ys, ar, "f32")
+            v, want = gen.axpy_vector(xs, ys, got, ar), 1 if c0 else vec
+            kind = "vector" if v > 1 else "element"
+            chk.record(v == want, f"generic {label}: V = {v} (the {kind} instantiation)")
+            torch.cuda.synchronize()
+            ref = 2.0 * xs.double() + ys.double()
+            err = float(((got.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+            del ref
+            compare("axpy", label, got, gen._axpy_plain(xs, ys, ar, "f32", 2.0), err, 2.0**-24)
+            del got, xs, ys
+            torch.cuda.empty_cache()
         nel = x.numel()
         bnd, by = bound(nel * (2 * ebytes + 4), flops["axpy"] * nel)
-        r = {"ms": benchmark_function(lambda: gen.axpy(x, y, ar, "f32")),
+        # in turns: call, library, library, call (f32, where torch.add
+        # computes the same function), else call, call
+        call, lib = (lambda: gen.axpy(x, y, ar, "f32")), (lambda: torch.add(y, x, alpha=2.0))
+        t = [benchmark_function(f) for f in ((call, lib, lib, call) if pair == "f32/f32"
+                                             else (call, call))]
+        r = {"ms": min(t[0], t[-1]), "library_ms": min(t[1], t[2]) if len(t) == 4 else None,
              "plain_ms": benchmark_function(lambda: gen._axpy_plain(x, y, ar, "f32", 2.0),
                                             iters=3),
-             "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        if pair == "f32/f32":
-            r["library_ms"] = benchmark_function(lambda: torch.add(y, x, alpha=2.0))
-        r["device_ms"] = device_ms(f"generic_axpy {pair}", lambda: gen.axpy(x, y, ar, "f32"),
-                                   {"generic_axpy": lambda: gen.axpy_launches})
+             "bound_ms": bnd, "bound_by": by}
+        r["v1_ms"] = benchmark_function(lambda: gen.axpy(x[:, 1:], y[:, 1:], ar, "f32"))
+        r.update(generic_split(f"generic_axpy {pair}", lambda: gen.axpy(x, y, ar, "f32"),
+                               {"generic_axpy": lambda: gen.axpy_launches}, r["ms"]))
         rec["axpy"][pair] = r
         torch.cuda.empty_cache()
 
@@ -1342,7 +1401,7 @@ def phase_generic() -> list[dict]:
     for kind, pairs in rec.items():
         for pair, r in pairs.items():
             extra = "".join(f" | {what} {r[key]:.4f} ms" for key, what in
-                            (("v1_ms", "V = 1 one element off"), ("acc_gemv_ms", "acc_gemv"),
+                            (("v1_ms", "V = 1 unaligned"), ("acc_gemv_ms", "acc_gemv"),
                              ("mv_ms", "torch.mv"))
                             if key in r)
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -1489,7 +1548,7 @@ def phase_f8_probe() -> tuple[dict, dict]:
     # ---- the other probes' counterparts, at their own shapes ----
     rows = {"dot": {}, "gemv": {}, "gemv_fullrow": {}}
     before = {"dot": dotops.launches, "gemv": gemvops.launches}
-    dot_counted = {k: lambda: dotops.launches for k in ("dot_partials", "dot_finish")}
+    dot_counted = {"dot_reduce": lambda: dotops.launches}
     gemv_counted = {"gemv_rows": lambda: gemvops.launches}
     kx, ky = threefry.split(threefry.key(0))  # scripts/probe_dot_ragged.py:82-84
     for n in PROBE_DOT_NS:
@@ -1500,6 +1559,9 @@ def phase_f8_probe() -> tuple[dict, dict]:
             f"acc_dot Acc<f32,f32> n={n}", lambda: acc_dot(x, y, "f32"),
             lambda: dotops._dot_plain(x, y, "f32", 0.0), ("torch.dot", lambda: torch.dot(x, y)),
             8 * n + 4, 2 * n, dot_counted)
+        if n == PROBE_DOT_NS[0]:
+            dot_split(f"Acc<f32,f32> n={n}", lambda: acc_dot(x, y, "f32"),
+                      lambda: torch.dot(x, y))
         del x, y
     # scripts/probe_r4e.py:221-225: f32 x (V1, V3) and f8 x (V2), beta = 0
     x32 = x8.float()
@@ -2014,8 +2076,7 @@ def cg_split(run, iters_lo: int, iters_hi: int, label: str = "cg") -> dict:
     from accblas_tpu_torch.ops import dot as dotops
     from accblas_tpu_torch.ops import gemv as gemvops
 
-    counted = {"dot_partials": lambda: dotops.launches, "dot_finish": lambda: dotops.launches,
-               "gemv_rows": lambda: gemvops.launches}
+    counted = {"dot_reduce": lambda: dotops.launches, "gemv_rows": lambda: gemvops.launches}
     out = {}
     for it in (iters_lo, iters_hi):
         fn = lambda it=it: run(it)  # noqa: E731

@@ -1,29 +1,47 @@
-"""Time the generic kernels (``csrc/generic.cu``) of this checkout beside
-another checkout's and beside design variants of this one, in turns, on one
-card.
+"""Time the generic kernels (``csrc/generic.cu``) and the DOT (``csrc/dot.cu``)
+of this checkout beside another checkout's and beside design variants of
+this one, in turns, on one card.
 
-    python3 scripts/torch_generic_ab.py [--baseline OTHER_ROOT] [--variants]
+    python3 scripts/torch_generic_ab.py [--baseline OTHER_ROOT] [--variants [A,B,...]]
                                         [--reps 20]
 
 OTHER_ROOT is the root of another checkout: its ``accblas_tpu_torch`` is
 imported from there and built into its own ``build/``. ``--variants`` adds
 copies of this checkout's package under ``build/generic_variants/<name>/``,
-each with one design choice changed in the text (``VARIANTS``): 8 GEMV
-warps a block instead of 4, 8 vector steps in flight instead of 16, x
-staged once a block in shared memory as the arithmetic type (the grid then
-capped at the blocks the card holds at once) instead of read through L1,
-and A and the window read through L1 instead of past it.
+each with one design choice changed in the text (``VARIANTS``; all of them
+if none is named). The generic GEMV's: 8 warps a block instead of 4
+(``warps8``), 8 vector steps in flight instead of 16 (``steps8``), x staged
+once a block in shared memory (``x_shared``), A and the window read through
+L1 (``a_l1``). AXPY's: 16 vector steps in flight instead of 8
+(``axpy_steps16``) or 4 (``axpy_steps4``), plain stores instead of
+evict-first ones (``axpy_store``), a grid of the blocks the card holds at
+once instead of one block a tile (``axpy_resident``), 85 registers at
+most, 3 blocks an SM (``axpy_lb3``), and a ring of 1-D TMA bulk copies of x and y into shared
+memory fed by one producer warp (``axpy_tma``). The DOT's: 1, 4 or 16
+vector steps in flight instead of 8 (``dot_steps1``, ``dot_steps4``,
+``dot_steps16``), the f32 tier held to 32 registers so that its grid is
+one wave (``dot_one_wave``), and, to find what held the fixed bf16 tier, its step
+sums pushed into the counter one by one (``dot_push_each``, the same bits)
+and the tier's roundings to bf16 left out (``bf16_unrounded``: other bits,
+by design). Every kernel's reads past L1: through the non-coherent path
+(``nc_loads``), or with 256-byte L2 fetches (``l2_256``).
 
-All libraries are built first, at once; then each tree is timed in a
-process of its own, forward and backward through the list (baseline, this,
-variants..., variants..., this, baseline), so that a drift of the card
-shows as a gap between the two readings of one tree. Each line is one
-process: ``axpy`` over (16384, 32768), ``gemv_generic`` at 16384^2 and
-``window_sum`` of the (8192, 16384) window at (4096, 8192) of a (16384,
-32768) parent, at f32/f32, bf16/f32 and f32/df64, as CUDA-event minima in
-ms, and a hash of each result's bits; the last line says which trees'
-bits differ from this one's. Prints the card's name and power limit first.
-Compare trees only within one run.
+All libraries are built first: this tree's, then the others at once, a
+variant reusing this tree's library where its sources are the same (a
+variant that does not build is reported and left out); then each tree is timed in a process of its own,
+forward and backward through the list (baseline, this, variants...,
+variants..., this, baseline), so that a drift of the card shows as a gap
+between the two readings of one tree. Each line is one process, CUDA-event
+minima in ms: ``axpy`` over (16384, 32768) and over its window one column on
+(V = 1), ``gemv_generic`` at 16384^2 and ``window_sum`` of the (8192, 16384)
+window at (4096, 8192) of a (16384, 32768) parent, at f32/f32, bf16/f32 and
+f32/df64; the DOT's rows (Acc<f32,bf16> at 2^29, the main path's;
+Acc<f32,f32> at 2^27 and 2^27 + 17; Acc<f32,bf16>, the fixed bf16 and f16
+tiers and df64 fast and precise at 2^27); and the host us a DOT call takes
+(medians: the call, its checks alone with the launch stubbed, its bare
+ctypes call). A hash of each result's bits closes the line; the last line
+says which trees' bits differ from this one's. Prints the card's name and
+power limit first. Compare trees only within one run.
 """
 
 from __future__ import annotations
@@ -34,6 +52,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -64,11 +83,119 @@ _LAUNCH_STAGED = """        const size_t smem = n * sizeof(Ar);
           staged(generic_gemv<1, kLevelsOne, Ar, SI, SO>);
         } else {"""
 
+# AXPY through a ring of shared-memory stages, each a chunk of x and of y
+# brought by 1-D TMA bulk copies (cp.async.bulk, completion counted on an
+# mbarrier) that one producer warp issues; kThreads consumer threads read
+# V-wide packs from shared memory and store as the kernel does. Rows whose
+# width is a whole number of chunks only (the launch below checks).
+_TMA_KERNEL = """constexpr int kTmaStages = 4;     // stages of the ring
+constexpr int kTmaChunk = 4096;    // elements of x (and of y) a stage
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" : : "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               : : "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" : : "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\\n .reg .pred p;\\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+                 " selp.u32 %0, 1, 0, p;\\n}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1], %2, [%3];"
+               : : "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+template <int V, class Ar, class SI, class SO>
+__global__ void __launch_bounds__(kThreads + 32)
+    generic_axpy_tma(const SI* x, int64_t sx, const SI* y, int64_t sy, range_t<Ar, SO> o,
+                     float alpha) {
+  constexpr unsigned kBytes = kTmaChunk * sizeof(SI);
+  extern __shared__ __align__(128) unsigned char smem[];
+  SI* xs = reinterpret_cast<SI*>(smem);
+  SI* ys = xs + kTmaStages * kTmaChunk;
+  __shared__ uint64_t full[kTmaStages], empty[kTmaStages];
+  const int64_t per_row = o.length(1) / kTmaChunk;
+  const int64_t chunks = o.length(0) * per_row;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {  // the producer warp: one thread issues the copies
+    if (threadIdx.x == kThreads) {
+      int k = 0;
+      for (int64_t t = blockIdx.x; t < chunks; t += gridDim.x, ++k) {
+        const int s = k % kTmaStages;
+        if (k >= kTmaStages) mbar_wait(&empty[s], (k / kTmaStages - 1) & 1);
+        const int64_t i = t / per_row, c0 = (t - i * per_row) * kTmaChunk;
+        mbar_expect_tx(&full[s], 2 * kBytes);
+        bulk_copy(xs + s * kTmaChunk, x + i * sx + c0, kBytes, &full[s]);
+        bulk_copy(ys + s * kTmaChunk, y + i * sy + c0, kBytes, &full[s]);
+      }
+    }
+    return;
+  }
+  int k = 0;
+  for (int64_t t = blockIdx.x; t < chunks; t += gridDim.x, ++k) {
+    const int s = k % kTmaStages;
+    mbar_wait(&full[s], (k / kTmaStages) & 1);
+    const int64_t i = t / per_row, c0 = (t - i * per_row) * kTmaChunk;
+    const auto orow = o.window(i, c0, 1, kTmaChunk).row(0);
+#pragma unroll 4
+    for (int c = threadIdx.x * V; c < kTmaChunk; c += kThreads * V) {
+      const Pack<SI, V> px = *reinterpret_cast<const Pack<SI, V>*>(xs + s * kTmaChunk + c);
+      const Pack<SI, V> py = *reinterpret_cast<const Pack<SI, V>*>(ys + s * kTmaChunk + c);
+      Ar v[V];
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        v[u] = Widen<Ar>::from(load_f32(px.v[u])) * alpha + Widen<Ar>::from(load_f32(py.v[u]));
+      }
+      orow.store_stream(c, v);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+"""
+_AXPY_LAUNCH = """        if (v == kV) {
+          launch(generic_axpy<kV, Ar, SI, SO>, kAxpyTile<kV>);"""
+_AXPY_LAUNCH_TMA = """        if (v == kV && cols % kTmaChunk == 0) {
+          auto kern = generic_axpy_tma<kV, Ar, SI, SO>;
+          const int smem = 2 * kTmaStages * kTmaChunk * sizeof(SI);
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          int dev = 0, sms = 0, per_sm = 0;
+          cudaGetDevice(&dev);
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads + 32, smem);
+          kern<<<sms * per_sm, kThreads + 32, smem, s>>>(static_cast<const SI*>(x), sx,
+                                                        static_cast<const SI*>(y), sy, ro,
+                                                        alpha);
+        } else if (v == kV) {
+          launch(generic_axpy<kV, Ar, SI, SO>, kAxpyTile<kV>);"""
+
 # name: [(file under accblas_tpu_torch/, text, replacement), ...]
 VARIANTS = {
     "warps8": [("csrc/generic.cu", "constexpr int kGemvWarps = 4;",
-                "constexpr int kGemvWarps = 8;"),
-               ("ops/generic.py", "_GEMV_ROWS = 4 ", "_GEMV_ROWS = 8 ")],
+                "constexpr int kGemvWarps = 8;")],
     "steps8": [("csrc/generic.cu", "constexpr int kStepsLog2 = 4;",
                 "constexpr int kStepsLog2 = 3;"),
                ("ops/generic.py", "_STEPS = 16\n", "_STEPS = 8\n")],
@@ -89,6 +216,54 @@ VARIANTS = {
               "          arow.load(c, av);\n"),
              ("csrc/generic.cu", ".stream(static_cast<int>(q & col_mask), v[s]);",
               ".load(static_cast<int>(q & col_mask), v[s]);")],
+    "axpy_steps16": [("csrc/generic.cu", "constexpr int kAxpySteps = 8;",
+                      "constexpr int kAxpySteps = 16;")],
+    "axpy_store": [("csrc/generic.cu", "        orow.store_stream((s * kThreads + threadIdx.x) * V, v);",
+                    "        orow.store((s * kThreads + threadIdx.x) * V, v);")],
+    "axpy_tma": [("csrc/generic.cu", "// o(i, 0) = (sum_j a(i, j) * x(0, j)) * alpha",
+                  _TMA_KERNEL + "// o(i, 0) = (sum_j a(i, j) * x(0, j)) * alpha"),
+                 ("csrc/generic.cu", _AXPY_LAUNCH, _AXPY_LAUNCH_TMA)],
+    "axpy_steps4": [("csrc/generic.cu", "constexpr int kAxpySteps = 8;",
+                     "constexpr int kAxpySteps = 4;")],
+    # a grid of the blocks the card holds at once, each walking many tiles
+    "axpy_resident": [("csrc/generic.cu",
+                       "          const unsigned grid = static_cast<unsigned>(tiles < (1 << 20) ? "
+                       "tiles : 1 << 20);\n          kern<<<grid, kThreads, 0, s>>>",
+                       "          int dev = 0, sms = 0, per_sm = 0;\n"
+                       "          cudaGetDevice(&dev);\n"
+                       "          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+                       "          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, "
+                       "kThreads, 0);\n"
+                       "          const int64_t cap = int64_t{sms} * per_sm;\n"
+                       "          const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles "
+                       ": cap);\n          kern<<<grid, kThreads, 0, s>>>")],
+    # the bf16/f16 tiers' step sums pushed one by one (the same bits)
+    "dot_push_each": [("csrc/reduce.cuh",
+                       "      for (int r = 0; r < K; r += 2 * w) p[r] = round_ar<TIER>(__fadd_rn(p[r], "
+                       "p[r + w]));\n    }\n    push<log2_of(K)>(p[0]);",
+                       "      for (int r = 0; r < K; r += 2 * w) {}\n    }\n#pragma unroll\n"
+                       "    for (int s = 0; s < K; ++s) push(p[s]);")],
+    # the f32 tier held to 32 registers, so that its 1024 blocks are one wave
+    "dot_one_wave": [("csrc/dot.cu", "__global__ void __launch_bounds__(kThreads)\n    dot_reduce(",
+                      "__global__ void __launch_bounds__(kThreads, TIER == TIER_F32 ? 8 : 1)\n"
+                      "    dot_reduce(")],
+    # AXPY held to 85 registers: 3 blocks an SM in place of 2
+    "axpy_lb3": [("csrc/generic.cu", "__global__ void __launch_bounds__(kThreads)\n"
+                  "    generic_axpy(", "__global__ void __launch_bounds__(kThreads, 3)\n"
+                  "    generic_axpy(")],
+    # the streaming reads through the non-coherent path, or asking L2 for
+    # 256-byte fetches (every kernel that reads past L1)
+    "nc_loads": [("csrc/accessor.cuh", "ld.global.L1::no_allocate.v4.u32",
+                  "ld.global.nc.L1::no_allocate.v4.u32")],
+    "l2_256": [("csrc/accessor.cuh", "ld.global.L1::no_allocate.v4.u32",
+                "ld.global.L1::no_allocate.L2::256B.v4.u32")],
+    "dot_steps1": [("csrc/dot.cu", "constexpr int kSteps = 8;", "constexpr int kSteps = 1;")],
+    "dot_steps4": [("csrc/dot.cu", "constexpr int kSteps = 8;", "constexpr int kSteps = 4;")],
+    "dot_steps16": [("csrc/dot.cu", "constexpr int kSteps = 8;", "constexpr int kSteps = 16;")],
+    "bf16_unrounded": [("csrc/accessor.cuh",
+                        "    return __bfloat162float(__float2bfloat16_rn(v));\n"
+                        "  } else if constexpr (TIER == TIER_F16) {",
+                        "    return v;\n  } else if constexpr (TIER == TIER_F16) {")],
 }
 
 
@@ -110,14 +285,62 @@ def make_variant(name: str) -> str:
     return str(root)
 
 
+def host_us(fn, reps: int = 2000) -> float:
+    """Median host us of a call of `fn`, timed one by one, the card drained
+    every 100 calls outside the timed ones (chip_smoke.py's host_us)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 100 == 99:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e6
+
+
+def dot_host_split(dotops, build, call) -> dict:
+    """Host us of a DOT call, of its checks alone (`_dot_cuda` stubbed out)
+    and of its bare ctypes call with the arguments it passed."""
+    import torch
+
+    res = torch.zeros(2, device="cuda").unbind()  # (hi, lo) for either tree's caller
+    real_cuda, real_fn, seen = dotops._dot_cuda, build.function, []
+
+    def spy(lib, name, argtypes):
+        fn = real_fn(lib, name, argtypes)
+        return lambda *args: seen.append((fn, args)) or fn(*args)
+
+    out = {"call": host_us(call)}
+    dotops._dot_cuda = lambda *args: res
+    try:
+        out["checks"] = host_us(call)
+    finally:
+        dotops._dot_cuda = real_cuda
+    build.function = spy
+    try:
+        kept = call()  # noqa: F841 (keeps the output the arguments point to)
+    finally:
+        build.function = real_fn
+    (fn, args), = seen
+    out["ctypes"] = host_us(lambda: fn(*args))
+    return out
+
+
 def child(root: str, reps: int, build_only: bool) -> None:
     sys.path.insert(0, root)
     import torch
 
     from accblas_tpu_torch.ops import _build
+    from accblas_tpu_torch.ops import dot as dotops
     from accblas_tpu_torch.ops import generic as gen
 
-    _build.build("generic")
+    _build.build("generic", "dot")
     if build_only:
         return
     dev = torch.device("cuda", 0)
@@ -140,19 +363,56 @@ def child(root: str, reps: int, build_only: bool) -> None:
             out = min(out, start.elapsed_time(end))
         return out
 
+    def result_bytes(out) -> bytes:
+        words = [out.hi, out.lo] if isinstance(out, tuple) else [out]
+        return b"".join(w.float().cpu().numpy().tobytes() for w in words)
+
     row = {"tree": str(Path(gen.__file__).resolve().parents[2])}
     bits = hashlib.sha256()
     for st, ar in PAIRS:
         dt = torch.float32 if st == "f32" else torch.bfloat16
         a_st, x_st, p_st, o_st = a.to(dt), x.to(dt), parent.to(dt), other.to(dt)
         calls = {"axpy": lambda: gen.axpy(p_st, o_st, ar, "f32"),
+                 "axpy V=1 one column on": lambda: gen.axpy(p_st[:, 1:], o_st[:, 1:], ar, "f32"),
                  "gemv": lambda: gen.gemv_generic(a_st, x_st, r, ar, "f32"),
                  "window": lambda: gen.window_sum(p_st, 4096, 8192, 8192, 16384, ar)}
         for kind, fn in calls.items():
-            bits.update(fn().cpu().numpy().tobytes())
+            bits.update(result_bytes(fn()))
             row[f"{kind} {st}/{ar}"] = best(fn)
         del a_st, x_st, p_st, o_st
         torch.cuda.empty_cache()
+    del a, x, r, parent, other
+    torch.cuda.empty_cache()
+
+    # the DOT: the main path's Acc<f32,bf16> at 2^29, then every tier at 2^27
+    bf, f16 = torch.bfloat16, torch.float16
+    xb, yb = (torch.rand(2**29, device=dev, generator=g).mul_(2).sub_(1).to(bf) for _ in "xy")
+    main = lambda: dotops.acc_dot(xb, yb, "f32")  # noqa: E731
+    bits.update(result_bytes(main()))
+    row["dot Acc<f32,bf16> 2^29"] = best(main)
+    row["dot host us Acc<f32,bf16> 2^29"] = dot_host_split(dotops, _build, main)
+    del xb, yb
+    torch.cuda.empty_cache()
+    x27, y27 = (torch.rand(2**27 + 17, device=dev, generator=g) * 2 - 1 for _ in "xy")
+    xs, ys = x27[:2**27], y27[:2**27]
+    xb, yb, xh, yh = xs.to(bf), ys.to(bf), xs.to(f16), ys.to(f16)
+    dots = {"Acc<f32,f32> 2^27": lambda: dotops.acc_dot(xs, ys, "f32"),
+            "Acc<f32,f32> 2^27 + 17": lambda: dotops.acc_dot(x27, y27, "f32"),
+            "Acc<f32,bf16> 2^27": lambda: dotops.acc_dot(xb, yb, "f32"),
+            "fixed bf16 2^27": lambda: dotops.dot(xb, yb),
+            "fixed f16 2^27": lambda: dotops.dot(xh, yh),
+            "Acc<df64,f32> fast 2^27": lambda: dotops.acc_dot(xs, ys, "df64"),
+            "Acc<df64,f32> precise 2^27": lambda: dotops.acc_dot(xs, ys, "df64", precise=True)}
+    for label, fn in dots.items():
+        bits.update(result_bytes(fn()))
+        row[f"dot {label}"] = best(fn)
+    row["dot host us Acc<f32,f32> 2^27"] = dot_host_split(dotops, _build, dots["Acc<f32,f32> 2^27"])
+    t = torch.zeros(2, device=dev)
+    row["torch host us"] = {"torch.empty(2)": host_us(lambda: torch.empty(2, device=t.device)),
+                            "new_empty(2)": host_us(lambda: t.new_empty(2)),
+                            "out[0], out[1]": host_us(lambda: (t[0], t[1])),
+                            "unbind": host_us(t.unbind),
+                            "torch.dot 2^27": host_us(lambda: torch.dot(xs, ys))}
     row["bits"] = bits.hexdigest()[:16]
     print(json.dumps(row), flush=True)
 
@@ -179,9 +439,30 @@ def main(argv=None) -> int:
     if args.variants:
         trees += [make_variant(name) for name in args.variants.split(",")]
     cmd = [sys.executable, __file__, "--reps", str(args.reps), "--child"]
-    builds = [subprocess.Popen(cmd + [root, "--build-only"]) for root in trees]
-    if any(p.wait() for p in builds):
+    # this tree first: a variant reuses its libraries where its sources are
+    # the same (the file name carries their hash), then the rest at once
+    first = subprocess.run(cmd + [this, "--build-only"], capture_output=True, text=True)
+    if first.returncode:
+        sys.stdout.write(first.stdout + first.stderr)
         return 1
+    built = HERE / "build" / "accblas_tpu_torch"
+    for root in trees:
+        if root.startswith(str(VARIANT_DIR)):
+            dest = Path(root) / "build" / "accblas_tpu_torch"
+            dest.mkdir(parents=True, exist_ok=True)
+            for lib in built.glob("lib*"):
+                shutil.copy2(lib, dest / lib.name)
+    builds = [(root, subprocess.Popen(cmd + [root, "--build-only"], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+              for root in trees if root != this]
+    for root, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            if not root.startswith(str(VARIANT_DIR)):
+                sys.stdout.write(log)
+                return 1
+            print(json.dumps({"tree": root, "build": "failed", "log": log[-3000:]}), flush=True)
+            trees.remove(root)
     bits = {}
     for root in trees + trees[::-1]:
         out = subprocess.run(cmd + [root], capture_output=True, text=True)

@@ -8,6 +8,8 @@ tests/conftest.py):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from accblas_tpu_torch.ops import generic as tgen
 from accblas_tpu_torch.ops import gemv as tgemv
 from accblas_tpu_torch.ops import tri_gemv as ttri
 from accblas_tpu_torch.ops import trsv as ttrsv
+from accblas_tpu_torch.ops.common import pow2_tree_sum
 from accblas_tpu_torch.utils import MatrixInfo, devgen, gen_mtx, interop, tolerance
 
 torch.set_num_threads(1)
@@ -112,6 +115,130 @@ def test_dot_kernel_small_and_unaligned(cuda, tier, n):
         _run_dot(x, y, tier)
     else:
         assert float(_value(tdot.acc_dot(x, y, "f32", init=0.5))) == 0.5
+
+
+# ---- the DOT's one launch: the last block's fold, the scratch, the ticket ----
+
+def _dot_blocks(x, y) -> int:
+    """The DOT kernel's grid (csrc/dot.cu accblas_dot): one block for each
+    256 vector steps of 16 bytes of the wider operand (single elements
+    where either operand is not 16-byte aligned), 1 to 1024 blocks."""
+    v = 16 // max(x.element_size(), y.element_size())
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    work = x.numel() // v if aligned else x.numel()
+    return max(1, min(1024, -(-work // 256)))
+
+
+def _finish_replica(partials, nblocks: int, tier: str, init: float):
+    """The former second pass dot_finish's order over the block partials, in
+    float32 torch ops that each round (df_add for df64): 1024 threads, t
+    holding 0 + partial t (0 past nblocks), a halving shuffle tree in each
+    warp of 32, a halving tree over the 32 warp sums, then init. (hi, lo)."""
+    p = partials[:2 * nblocks].view(nblocks, 2).cpu()
+    pad = torch.zeros(1024 - nblocks)
+    zero = torch.zeros(1024)
+    if tier.startswith("df64"):
+        v = tdf.df_add(tdf.DF(zero, zero), tdf.DF(torch.cat([p[:, 0], pad]),
+                                                  torch.cat([p[:, 1], pad])))
+        total = pow2_tree_sum(pow2_tree_sum(v.reshape(32, 32), 1))
+        out = tdf.df_add(total, tdf.DF(torch.tensor(init), torch.tensor(0.0)))
+        return out.hi, out.lo
+    total = pow2_tree_sum(pow2_tree_sum((zero + torch.cat([p[:, 0], pad])).view(32, 32), 1))
+    if tier == "f32":
+        return torch.tensor(init) + total, torch.tensor(0.0)
+    dt = STORAGE[tier]
+    return (torch.tensor(init).to(dt).float() + total).to(dt).float(), torch.tensor(0.0)
+
+
+def _dot_and_partials(x, y, tier, init=0.5):
+    """(hi, lo) of one kernel call and the block partials it left in the
+    current stream's scratch."""
+    ar, precise = _ar(tier)
+    before = tdot.launches
+    out = tdot.acc_dot(x, y, ar, precise=precise, init=init)
+    assert tdot.launches == before + 1
+    hi, lo = (out.hi, out.lo) if isinstance(out, tdf.DF) else (out, torch.zeros(()))
+    torch.cuda.synchronize()
+    buf = _build._scratch[(x.get_device(), _build.stream(x))]
+    return hi.float().cpu(), lo.cpu(), buf.view(torch.float32)[:2048].clone()
+
+
+@pytest.mark.parametrize("st", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("n", ["0", "1", "one block", "2^20 + 3", "2^24 + 1"])
+def test_dot_one_launch_folds_in_the_finish_order(cuda, n, tier, st):
+    """The last block's fold of the partials the kernel left in its scratch
+    equals the former dot_finish pass, bit for bit, in every tier: at n = 0
+    and 1 (one block), one block's worth of vector steps, 2^20 + 3 (every
+    block a partial, a ragged tail) and 2^24 + 1 (1024 blocks of many
+    steps). The result within the tier's bound of float64 relative to
+    sum |x y| (these draws may cancel: 2^24 + 1 at seed 5 does), for the
+    narrow tiers 2^-p log2 n of it (p = 8 for bf16, 11 for f16)."""
+    size = {"0": 0, "1": 1, "one block": 256 * (16 // STORAGE[st].itemsize),
+            "2^20 + 3": 2**20 + 3, "2^24 + 1": 2**24 + 1}[n]
+    x = devgen.gen_f32((size,), 5, "dot_x", device=cuda).to(STORAGE[st])
+    y = devgen.gen_f32((size,), 5, "dot_y", device=cuda).to(STORAGE[st])
+    hi, lo, partials = _dot_and_partials(x, y, tier)
+    rhi, rlo = _finish_replica(partials, _dot_blocks(x, y), tier, 0.5)
+    assert torch.equal(hi, rhi) and torch.equal(lo, rlo), (hi, rhi, lo, rlo)
+    if size == 0:
+        assert float(hi) + float(lo) == 0.5
+        return
+    p = x.double() * y.double()
+    ref, scale = float(p.sum()) + 0.5, float(p.abs().sum()) + 0.5
+    bound = tolerance.TOL.get(tier) or {"bf16": 2**-8, "f16": 2**-11}[tier] * np.log2(size + 1)
+    assert abs(float(hi.double() + lo.double()) - ref) <= bound * scale
+
+
+@pytest.mark.parametrize("tier", ["f32", "df64_precise"])
+def test_dot_one_launch_unaligned_fold(cuda, tier):
+    """x one element past a 16-byte boundary: the element-wise body, its
+    grid from single elements; the fold still dot_finish's."""
+    base = devgen.gen_f32((300_001,), 6, "dot_x", device=cuda)
+    x, y = base[1:], devgen.gen_f32((300_000,), 6, "dot_y", device=cuda)
+    hi, lo, partials = _dot_and_partials(x, y, tier)
+    assert _dot_blocks(x, y) == 1024
+    rhi, rlo = _finish_replica(partials, 1024, tier, 0.5)
+    assert torch.equal(hi, rhi) and torch.equal(lo, rlo)
+
+
+def test_dot_ticket_resets_on_one_and_on_two_streams(cuda):
+    """Calls back to back on one stream, of two sizes (1024 blocks and 20)
+    and two tiers, then 50 calls on each of two side streams at once: every
+    result bit-equal to the first of its kind, so each call's last block
+    left its stream's ticket at 0; each stream has its own scratch."""
+    big = (devgen.gen_f32((2**20 + 3,), 7, "dot_x", device=cuda),
+           devgen.gen_f32((2**20 + 3,), 7, "dot_y", device=cuda))
+    small = (big[0][:20_000], big[1][:20_000])
+    calls = [lambda: tdot.acc_dot(*big, "f32"), lambda: tdot.acc_dot(*small, "df64"),
+             lambda: tdot.acc_dot(*small, "f32"), lambda: tdot.acc_dot(*big, "df64")]
+
+    def bits(out):
+        return torch.stack(list(out)) if isinstance(out, tdf.DF) else out.reshape(1)
+
+    first = [bits(c()) for c in calls]
+    outs = [bits(calls[i % 4]()) for i in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first[i % 4]) for i, o in enumerate(outs))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    side = [[], []]
+    for i in range(50):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                side[k].append(bits(calls[(i + k) % 4]()))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        assert all(torch.equal(o, first[(i + k) % 4]) for i, o in enumerate(side[k]))
+    keys = {(big[0].get_device(), st.cuda_stream) for st in streams}
+    assert keys <= set(_build._scratch)
+    assert len({_build._scratch[k].data_ptr() for k in keys}) == 2
+
+
+def test_the_scratch_size_is_the_kernels(cuda):
+    """The scratch the wrappers make holds what both libraries that fold
+    across blocks in one launch take (csrc/reduce.cuh kScratchBytes)."""
+    for lib in ("dot", "generic"):
+        assert _build.function(lib, "accblas_scratch_bytes", [])() == _build.SCRATCH_BYTES
 
 
 def test_dot_kernel_repeats_its_bits(cuda):
@@ -835,6 +962,28 @@ def test_generic_axpy_kernel(cuda, rows, cols, st, ar):
 
 
 @pytest.mark.parametrize("out_st", list(STORAGE))
+@pytest.mark.parametrize("st,ar", GENERIC_PAIRS)
+def test_generic_axpy_both_instantiations(cuda, st, ar, out_st):
+    """The vector body (rows at a multiple of V: 16-byte reads, V-wide
+    evict-first stores of every output storage) on rows spanning whole
+    tiles and a ragged last one; the V = 1 body on the window one column on
+    and on an odd row stride: each bit-equal to the plain version."""
+    v = tgen.vector_width(STORAGE[st], ar)
+    rows, cols = 5, 16_408  # a multiple of 8 columns: two f32 tiles and 24 more
+    xp = _draw((rows, cols + 8), "generic_x", st, cuda)
+    yp = _draw((rows, cols + 8), "generic_y", st, cuda)
+    odd = (_draw((rows, 4099), "generic_x", st, cuda), _draw((rows, 4099), "generic_y", st, cuda))
+    for x, y, want in ((xp[:, :cols], yp[:, :cols], v), (xp[:, 1:cols], yp[:, 1:cols], 1),
+                       (*odd, 1)):
+        before = tgen.axpy_launches
+        got = tgen.axpy(x, y, ar, out_st, alpha=-0.75)
+        assert tgen.axpy_launches == before + 1
+        assert tgen.axpy_vector(x, y, got, ar) == want
+        assert got.dtype == STORAGE[out_st]
+        assert torch.equal(got.float(), tgen._axpy_plain(x, y, ar, out_st, -0.75).float())
+
+
+@pytest.mark.parametrize("out_st", list(STORAGE))
 def test_generic_axpy_kernel_every_output_storage(cuda, out_st):
     x = _draw((33, 129), "generic_x", "f32", cuda)
     y = _draw((33, 129), "generic_y", "f32", cuda)
@@ -966,24 +1115,32 @@ def test_generic_kernels_repeat_their_bits(cuda):
 
 
 def test_a_const_range_does_not_compile_a_store(cuda, tmp_path):
-    """nvcc refuses a store through a Range over const storage and accepts
-    the same store through a writable one."""
+    """nvcc refuses a store through a Range over const storage, the scalar
+    r(i, j) = v and the vector row.store<V> and row.store_stream<V>, and
+    accepts the same stores through a writable one."""
     import subprocess
 
-    src = """#include "range.cuh"
-using namespace accblas;
-__global__ void k(range_t<DF, %s float> r) { r(0, 0) = r(0, 1) * 2.0f; }
-"""
+    bodies = {
+        "scalar": "__global__ void k(range_t<DF, %s float> r) { r(0, 0) = r(0, 1) * 2.0f; }",
+        # the vector stores: 8 bf16 values from 8 f32 ones
+        "store": "__global__ void k(range_t<float, %s __nv_bfloat16> r) "
+                 "{ float v[8]; r.row(0).load(8, v); r.row(0).store(0, v); }",
+        "store_stream": "__global__ void k(range_t<float, %s __nv_bfloat16> r) "
+                        "{ float v[8]; r.row(0).load(8, v); r.row(0).store_stream(0, v); }",
+    }
     results = {}
     for const in ("", "const"):
-        f = tmp_path / f"k{const}.cu"
-        f.write_text(src % const)
-        cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-I", str(_build._CSRC), "-c", "-o", str(tmp_path / "k.o"), str(f)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        results[const] = (proc.returncode, proc.stdout + proc.stderr)
-    assert results[""][0] == 0, results[""][1]
-    assert results["const"][0] != 0 and "store through a const Range" in results["const"][1]
+        for kind, body in bodies.items():
+            f = tmp_path / f"k{const}{kind}.cu"
+            f.write_text('#include "range.cuh"\nusing namespace accblas;\n' + body % const + "\n")
+            cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-I", str(_build._CSRC), "-c", "-o", str(tmp_path / "k.o"), str(f)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            results[const, kind] = (proc.returncode, proc.stdout + proc.stderr)
+    for kind in bodies:
+        assert results["", kind][0] == 0, results["", kind][1]
+        code, out = results["const", kind]
+        assert code != 0 and "store through a const Range" in out, out
 
 
 # ---- the fuzz sweep of tests/test_fuzz.py, kernel against plain version ----

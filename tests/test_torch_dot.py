@@ -155,6 +155,33 @@ def test_rejections_match_jax():
         tdot.acc_dot(torch.zeros(8), torch.zeros(8), "f64")
 
 
+def test_every_check_of_the_lean_path_raises_as_before():
+    """The wrapper takes each check once; each still raises its ValueError
+    with its message, on CPU tensors as on the card: not 1-D, unequal
+    lengths, mixed devices, f8 storage in the fixed tier, a bad `ar`, a
+    dtype no kernel stores."""
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="equal-length vectors, got \\(2, 4\\) \\(2, 4\\)"):
+        tdot.acc_dot(x.view(2, 4), x.view(2, 4), "f32")
+    with pytest.raises(ValueError, match="equal-length vectors, got \\(8,\\) \\(7,\\)"):
+        tdot.acc_dot(x, x[:7], "f32")
+    with pytest.raises(ValueError, match="equal-length vectors"):
+        tdot.dot(x, x[:7])
+    with pytest.raises(ValueError, match="dot: operands on different devices"):
+        tdot.acc_dot(x, torch.zeros(8, device="meta"), "f32")
+    x8 = x.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="f8e4m3 is a storage-only tier"):
+        tdot.dot(x8, x8)
+    with pytest.raises(ValueError, match="unknown arithmetic type 'f12'"):
+        tdot.acc_dot(x, x, "f12")
+    with pytest.raises(ValueError, match="dot has no f64 arithmetic tier"):
+        tdot.acc_dot(x, x, "f64")
+    with pytest.raises(ValueError, match="dot y: dtype torch.float64 is not a kernel storage"):
+        tdot.acc_dot(x, x.double(), "f32")
+    with pytest.raises(ValueError, match="dot x: dtype torch.int32 is not a kernel storage"):
+        tdot.acc_dot(x.int(), x, "f32")
+
+
 def test_cpu_tensors_never_launch_the_kernel():
     before = tdot.launches
     x = interop.from_numpy(_vec(1000, 61, "bf16"))

@@ -432,6 +432,56 @@ def test_the_wrappers_choose_the_vector_instantiation_by_alignment():
     assert generic.window_vector(odd, 0, 0, 1, 8, "f32") == 4  # one row: no stride read
 
 
+def test_the_axpy_wrapper_chooses_v_by_the_gemv_rule():
+    """AXPY takes the vector instantiation where every row of x, y and the
+    output starts at a multiple of V elements (its base, and its row stride
+    past one row): the GEMV's rule for A, one function; else V = 1."""
+    f32, bf16, f8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+
+    def v(x, y, out_dtype=f32, ar="f32"):
+        return generic.axpy_vector(x, y, torch.empty(x.shape, dtype=out_dtype), ar)
+
+    p = torch.zeros(8, 272)
+    assert v(p[:, :256], p[:, 8:264]) == 4
+    assert v(p[:, :256], p[:, 4:260]) == 4  # 16 bytes off
+    assert v(p[:, 1:257], p[:, :256]) == 1  # x one element off
+    assert v(p[:, :256], p[:, 2:258]) == 1  # y 8 bytes off
+    assert v(p[:, :256], p[:, :256], ar="df64") == 4
+    assert v(torch.zeros(8, 255), torch.zeros(8, 255)) == 1  # an odd row stride (and output's)
+    assert v(torch.zeros(1, 255), torch.zeros(1, 255)) == 4  # one row: no stride read
+    b = p.to(bf16)
+    assert v(b[:, :256], b[:, 8:264]) == 8  # 8 bf16 in, 32 bytes of f32 out
+    assert v(b[:, :256], b[:, 4:260]) == 1  # 8 bytes: not 16
+    assert v(b[:, :256], b[:, 4:260], ar="df64") == 4
+    assert v(b[:, :256], b[:, :256], out_dtype=f8) == 8  # 8 bytes of f8 out
+    out = torch.empty(8, 257)[:, 1:]  # an output one element off
+    assert generic.axpy_vector(p[:, :256], p[:, :256], out, "f32") == 1
+    # the same rule as the GEMV's for A
+    for t in (p[:, :256], p[:, 1:257], p[:, 4:260], torch.zeros(8, 255), b[:, 4:260]):
+        assert generic._rows_aligned(4, t) == (generic.gemv_vector(t, torch.zeros(t.shape[1],
+                                                                                    dtype=t.dtype),
+                                                                   "df64") == 4)
+
+
+def test_the_scratch_helper_keys_by_device_and_stream():
+    """One zeroed buffer a (device, stream), made at its first use and
+    given again after: the DOT and the window sum share it."""
+    from accblas_tpu_torch.ops import _build
+
+    t = torch.zeros(3)
+    keys = [(t.get_device(), s) for s in (101, 102)]
+    try:
+        a, b = _build.scratch(t, 101), _build.scratch(t, 102)
+        assert a != b and _build.scratch(t, 101) == a and _build.scratch(t, 102) == b
+        for key, addr in zip(keys, (a, b)):
+            buf = _build._scratch[key]
+            assert buf.data_ptr() == addr and buf.numel() == _build.SCRATCH_BYTES
+            assert buf.dtype == torch.uint8 and not buf.any()
+    finally:
+        for key in keys:
+            _build._scratch.pop(key, None)
+
+
 # ---------------------------------------------------------------- the wrappers
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
