@@ -7,7 +7,8 @@
   ``r.set(idx, v)`` / ``r.store(v)`` cast and write in place. ``const=True``
   makes writes raise. ``stride`` views an (m, n) window of a parent whose
   physical row length is ``stride`` (a 2-D parent with that row length, or a
-  flat parent of at least ``m * stride`` elements).
+  flat parent of at least ``m * stride`` elements); ``r.window(row0, col0,
+  m, n)`` is the (m, n) window of a 2-D view at (row0, col0).
 
 Inside the CUDA kernels the same (ar, st) pair is a pair of template
 parameters (``csrc/accessor.cuh``). Counterpart of
@@ -172,6 +173,13 @@ class Range:
             self._window()[...] = cast
         else:
             self.data[self._map_idx(idx)] = cast
+
+    def window(self, row0: int, col0: int, m: int, n: int) -> "Range":
+        """The (m, n) window of this 2-D view at (row0, col0): a Range of
+        the same spec and constness over a view of the same storage (no
+        copy), as ``r.window`` of the device Range (``csrc/range.cuh``)."""
+        return Range(self.spec, self._window()[row0 : row0 + m, col0 : col0 + n],
+                     const=self.const)
 
     def as_const(self) -> "Range":
         return Range(self.spec, self.data, self._size, const=True, stride=self.stride)

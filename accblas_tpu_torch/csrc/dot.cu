@@ -20,6 +20,17 @@
 // threads holding one partial each (0 past the grid), 32-lane shuffle-down
 // trees, then a tree over the 32 warp sums (block_reduce).
 //
+// x and y are read through the device accessor (range.cuh), as the JAX
+// kernel reads them through Ranges: each as a (n / V, V) range whose row i
+// is vector step i (the 64-bit product is row(i)'s, so n may pass 2^31),
+// read past L1 as stored values (row.stream_pack<V>) and widened to f32 as
+// they are added (Row::widen); the tail, and every element of unaligned
+// operands, as a (1, n) range, one element r.get(0, j) at a time. The Ranges
+// are built in the kernel from the restrict-qualified pointers it is
+// given, so the loads keep their provenance and the host call its 8
+// arguments. The partials, the ticket and (hi, lo) are the kernel's own
+// scratch and result words, as the JAX kernel's hi_ref and lo_ref are.
+//
 // Tiers (accessor.cuh Tier): f32 sums of f32 products; bf16/f16 with every
 // product and every add of a thread's pairwise partial sum rounded to that
 // type, the threads' partials then folded in f32 and the total rounded once
@@ -27,6 +38,7 @@
 // over f32 products) and precise (two_sum chains over exact two_prod
 // products), whose partials combine with df_add.
 
+#include "range.cuh"
 #include "reduce.cuh"
 
 namespace accblas {
@@ -95,25 +107,31 @@ __global__ void __launch_bounds__(kThreads)
 
   // vector body: V elements of each operand a step, kSteps steps in flight
   const int64_t nvec = vec_ok ? n / V : 0;
+  const range_t<float, const SX> xv(x, nvec, V, V);
+  const range_t<float, const SY> yv(y, nvec, V, V);
+  using XRow = row_t<float, const SX>;
+  using YRow = row_t<float, const SY>;
   int64_t i = tid;
   for (; i + (kSteps - 1) * nth < nvec; i += kSteps * nth) {
     Pack<SX, V> px[kSteps];
     Pack<SY, V> py[kSteps];
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      px[s] = load_pack_stream<SX, V>(x + (i + s * nth) * V);
-      py[s] = load_pack_stream<SY, V>(y + (i + s * nth) * V);
+      px[s] = xv.row(i + s * nth).template stream_pack<V>(0);
+      py[s] = yv.row(i + s * nth).template stream_pack<V>(0);
     }
-    acc.template add_steps<kSteps>(px, py);
+    acc.template add_steps<kSteps, XRow, YRow>(px, py);
   }
   for (; i < nvec; i += nth) {
-    float xv[V], yv[V];
-    unpack(load_pack_stream<SX, V>(x + i * V), xv);
-    unpack(load_pack_stream<SY, V>(y + i * V), yv);
-    acc.add_vec(xv, yv);
+    float xs[V], ys[V];
+    xv.row(i).template stream<V>(0, xs);
+    yv.row(i).template stream<V>(0, ys);
+    acc.add_vec(xs, ys);
   }
   // tail (or everything, for unaligned operands), one element at a time
-  for (int64_t j = nvec * V + tid; j < n; j += nth) acc.add(0, load_f32(x[j]), load_f32(y[j]));
+  const range_t<float, const SX> x1(x, 1, n, n);
+  const range_t<float, const SY> y1(y, 1, n, n);
+  for (int64_t j = nvec * V + tid; j < n; j += nth) acc.add(0, x1.get(0, j), y1.get(0, j));
 
   const value_t<TIER> v = block_reduce<kFold<TIER>>(acc.result());
   __shared__ bool last;

@@ -46,7 +46,21 @@
 // Epilogue: alpha and beta in the tier's arithmetic; res is not read when
 // beta == 0; the result is cast to the storage of res, or written as the
 // unrounded (hi, lo) pair when `out_lo` is given (df64 tiers only).
+//
+// Every operand is read, and the result written, through the device
+// accessor (range.cuh), as the JAX kernels read A and x and store through
+// Ranges: A an (m, n) range whose rows are taken once (row(i)), x a (1, n)
+// one, both read V stored values at a time (row.pack<V>, widened with
+// Row::widen once the step's loads are issued), or one element at a time
+// (row.from(j)(0)) where the operands are not aligned; a lane's walk along
+// its rows moves their bases (row.from), as the pointers moved before, so
+// a row may pass 2^31 columns as before. res and the result, whose storage
+// the kernel is not instantiated on, go through coded ranges
+// (Range<ReducedRowMajor<Ar, Coded>>, one dispatch a row); the unrounded
+// (hi, lo) result through two f32 ranges. The ranges are built in the
+// kernel from the restrict-qualified pointers it is given.
 
+#include "range.cuh"
 #include "reduce.cuh"
 
 namespace accblas {
@@ -73,33 +87,37 @@ struct RoundedF32 {
   }
 };
 
+// a row of A, and x, as the kernel reads them: f32 values of the stored ones
+template <class S>
+using in_row = row_t<float, const S>;
+
 // K vector steps of R rows: every load issued, then the products added in
-// column order; the pointers move past the K steps
+// column order; the rows and x move past the K steps
 template <int K, int R, int V, class SA, class SX, class Acc>
-__device__ __forceinline__ void vec_steps(Acc (&acc)[R], const SA* (&a)[R], const SX*& x) {
+__device__ __forceinline__ void vec_steps(Acc (&acc)[R], in_row<SA> (&a)[R], in_row<SX>& x) {
   constexpr int kStride = 32 * V;  // elements between a lane's steps
   Pack<SX, V> xp[K];
   Pack<SA, V> ap[K][R];
 #pragma unroll
   for (int u = 0; u < K; ++u) {
-    xp[u] = load_pack<SX, V>(x + u * kStride);
+    xp[u] = x.template pack<V>(u * kStride);
 #pragma unroll
-    for (int r = 0; r < R; ++r) ap[u][r] = load_pack<SA, V>(a[r] + u * kStride);
+    for (int r = 0; r < R; ++r) ap[u][r] = a[r].template pack<V>(u * kStride);
   }
 #pragma unroll
   for (int u = 0; u < K; ++u) {
     float xv[V];
-    unpack(xp[u], xv);
+    in_row<SX>::widen(xp[u], xv);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float av[V];
-      unpack(ap[u][r], av);
+      in_row<SA>::widen(ap[u][r], av);
       acc[r].add_vec(av, xv);
     }
   }
-  x += K * kStride;
+  x = x.from(K * kStride);
 #pragma unroll
-  for (int r = 0; r < R; ++r) a[r] += K * kStride;
+  for (int r = 0; r < R; ++r) a[r] = a[r].from(K * kStride);
 }
 
 // one lane's share of R rows' products over columns [c0, c1): vector steps
@@ -107,35 +125,35 @@ __device__ __forceinline__ void vec_steps(Acc (&acc)[R], const SA* (&a)[R], cons
 // time, the ragged rest U / 4 at a time and then one at a time; else single
 // elements
 template <int R, int U, int V, class SA, class SX, class Acc>
-__device__ __forceinline__ void lane_sum(Acc (&acc)[R], const SA* const (&row)[R],
-                                         const SX* __restrict__ x, int64_t c0, int64_t c1,
-                                         int vec_ok, int lane) {
+__device__ __forceinline__ void lane_sum(Acc (&acc)[R], const in_row<SA> (&row)[R],
+                                         in_row<SX> x, int64_t c0, int64_t c1, int vec_ok,
+                                         int lane) {
   if (vec_ok) {
     const int64_t j0 = c0 / V + lane, j1 = c1 / V;
     const int64_t steps = j0 < j1 ? (j1 - j0 + 31) / 32 : 0;
-    const SX* xs = x + j0 * V;
-    const SA* as[R];
+    in_row<SX> xs = x.from(j0 * V);
+    in_row<SA> as[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) as[r] = row[r] + j0 * V;
+    for (int r = 0; r < R; ++r) as[r] = row[r].from(j0 * V);
     constexpr int U4 = U / 4 > 1 ? U / 4 : 1;
     int64_t s = 0;
-    for (; s + U <= steps; s += U) vec_steps<U, R, V>(acc, as, xs);
-    for (; s + U4 <= steps; s += U4) vec_steps<U4, R, V>(acc, as, xs);
-    for (; s < steps; ++s) vec_steps<1, R, V>(acc, as, xs);
+    for (; s + U <= steps; s += U) vec_steps<U, R, V, SA, SX>(acc, as, xs);
+    for (; s + U4 <= steps; s += U4) vec_steps<U4, R, V, SA, SX>(acc, as, xs);
+    for (; s < steps; ++s) vec_steps<1, R, V, SA, SX>(acc, as, xs);
   } else {
     for (int64_t j = c0 + lane; j < c1; j += 32) {
-      const float xv = load_f32(x[j]);
+      const float xv = x.from(j)(0);
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r].add(0, load_f32(row[r][j]), xv);
+      for (int r = 0; r < R; ++r) acc[r].add(0, row[r].from(j)(0), xv);
     }
   }
 }
 
 // the R rows' sums of products in the tier's arithmetic; valid in lane 0
 template <class SA, class SX, int TIER, int R>
-__device__ __forceinline__ void rows_sum(value_t<TIER> (&total)[R], const SA* const (&row)[R],
-                                         const SX* __restrict__ x, int64_t n, int64_t bn,
-                                         int vec_ok, int lane) {
+__device__ __forceinline__ void rows_sum(value_t<TIER> (&total)[R], const in_row<SA> (&row)[R],
+                                         in_row<SX> x, int64_t n, int64_t bn, int vec_ok,
+                                         int lane) {
   constexpr int V = vec_width<SA, SX>();
   constexpr int U = kLoads / R;
   if constexpr (TIER == TIER_BF16 || TIER == TIER_F16) {
@@ -143,7 +161,7 @@ __device__ __forceinline__ void rows_sum(value_t<TIER> (&total)[R], const SA* co
     for (int r = 0; r < R; ++r) total[r] = 0.f;
     for (int64_t c0 = 0; c0 < n; c0 += bn) {
       RoundedF32<TIER, V> blk[R];
-      lane_sum<R, U, V>(blk, row, x, c0, c0 + bn < n ? c0 + bn : n, vec_ok, lane);
+      lane_sum<R, U, V, SA, SX>(blk, row, x, c0, c0 + bn < n ? c0 + bn : n, vec_ok, lane);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float part = warp_reduce<TIER_F32>(blk[r].f.result());
@@ -153,51 +171,59 @@ __device__ __forceinline__ void rows_sum(value_t<TIER> (&total)[R], const SA* co
     }
   } else {
     ThreadAcc<TIER, V> acc[R];
-    lane_sum<R, U, V>(acc, row, x, 0, n, vec_ok, lane);
+    lane_sum<R, U, V, SA, SX>(acc, row, x, 0, n, vec_ok, lane);
 #pragma unroll
     for (int r = 0; r < R; ++r) total[r] = warp_reduce<TIER>(acc[r].result());
   }
 }
 
+// where row i's result goes: the (m, 1) result in the storage of res, or,
+// for the unrounded df64 result (df_out), its hi and lo words as f32
+template <int TIER>
+struct Out {
+  range_t<value_t<TIER>, Coded> val;
+  range_t<float, float> hi, lo;
+  bool df_out;
+};
+
 // row i's result from its sum of products: alpha and beta in the tier's
 // arithmetic; res is never read when beta == 0 (it may hold garbage or NaN)
 template <int TIER>
-__device__ __forceinline__ void store_row(value_t<TIER> total, const void* res, int res_st,
-                                          void* out, float* out_lo, int64_t i, float alpha,
+__device__ __forceinline__ void store_row(value_t<TIER> total, const range_t<float, const Coded>& res,
+                                          const Out<TIER>& out, int64_t i, float alpha,
                                           float beta) {
-  const float rv = beta == 0.f ? 0.f : __fmul_rn(load_code(res, i, res_st), beta);
+  const float rv = beta == 0.f ? 0.f : __fmul_rn(res(i, 0), beta);
   if constexpr (is_df_tier(TIER)) {
     const DF o = df_add(df_mul_f32(total, alpha), DF{rv, 0.f});
-    if (out_lo != nullptr) {
-      static_cast<float*>(out)[i] = o.hi;
-      out_lo[i] = o.lo;
+    if (out.df_out) {
+      out.hi(i, 0) = o.hi;
+      out.lo(i, 0) = o.lo;
     } else {
-      store_code(out, i, res_st, __fadd_rn(o.hi, o.lo));
+      out.val(i, 0) = o;
     }
   } else {
-    store_code(out, i, res_st, round_ar<TIER>(__fadd_rn(__fmul_rn(total, alpha), rv)));
+    out.val(i, 0) = round_ar<TIER>(__fadd_rn(__fmul_rn(total, alpha), rv));
   }
 }
 
 // one warp's kRows consecutive rows from row0: the last group's rows past m
 // re-read row m - 1 and store nothing
 template <class SA, class SX, int TIER>
-__device__ __forceinline__ void gemv_group(const SA* __restrict__ A, const SX* __restrict__ x,
-                                           const void* res, int res_st, void* out,
-                                           float* out_lo, int64_t m, int64_t n, float alpha,
-                                           float beta, int64_t bn, int vec_ok, int64_t row0,
-                                           int lane) {
-  const SA* row[kRows];
+__device__ __forceinline__ void gemv_group(const range_t<float, const SA>& a,
+                                           const range_t<float, const SX>& x,
+                                           const range_t<float, const Coded>& res,
+                                           const Out<TIER>& out, float alpha, float beta,
+                                           int64_t bn, int vec_ok, int64_t row0, int lane) {
+  const int64_t m = a.length(0);
+  in_row<SA> row[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) row[r] = A + (row0 + r < m ? row0 + r : m - 1) * n;
+  for (int r = 0; r < kRows; ++r) row[r] = a.row(row0 + r < m ? row0 + r : m - 1);
   value_t<TIER> total[kRows];
-  rows_sum<SA, SX, TIER, kRows>(total, row, x, n, bn, vec_ok, lane);
+  rows_sum<SA, SX, TIER, kRows>(total, row, x.row(0), a.length(1), bn, vec_ok, lane);
   if (lane != 0) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    if (row0 + r < m) {
-      store_row<TIER>(total[r], res, res_st, out, out_lo, row0 + r, alpha, beta);
-    }
+    if (row0 + r < m) store_row<TIER>(total[r], res, out, row0 + r, alpha, beta);
   }
 }
 
@@ -208,8 +234,13 @@ __global__ void __launch_bounds__(kWarps * 32)
               int64_t bn, int vec_ok) {
   const int64_t row0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kRows;
   if (row0 < m) {  // a whole warp leaves together
-    gemv_group<SA, SX, TIER>(A, x, res, res_st, out, out_lo, m, n, alpha, beta, bn, vec_ok,
-                             row0, threadIdx.x & 31);
+    const range_t<float, const SA> ra(A, m, n, n);
+    const range_t<float, const SX> rx(x, 1, n, n);
+    const range_t<float, const Coded> rr(res, res_st, m, 1, 1);
+    const Out<TIER> ro{range_t<value_t<TIER>, Coded>(out, res_st, m, 1, 1),
+                       range_t<float, float>(static_cast<float*>(out), m, 1, 1),
+                       range_t<float, float>(out_lo, m, 1, 1), out_lo != nullptr};
+    gemv_group<SA, SX, TIER>(ra, rx, rr, ro, alpha, beta, bn, vec_ok, row0, threadIdx.x & 31);
   }
 }
 

@@ -26,6 +26,28 @@
 // column j to be a multiple of V elements: for every row, the range's base
 // and its row stride both multiples of V elements.
 //
+// For the tuned kernels of the main path (dot.cu, gemv.cu, trsv.cu), three
+// more: row.pack<V>(j) is load<V>'s first half, the V stored values as read
+// through L1 (Row::widen the second), for a kernel that keeps many such
+// reads in flight before it widens one; row.from(c) is the same row from
+// column c on (a Row whose column 0 is column c), a 64-bit move of its
+// base, so that a loop walks a row of any length with the 32-bit offsets
+// of one step, or a tile with constant ones; r.get(i, j) is the value
+// r(i, j) reads, with no Ref in between (read through a Ref, the DOT's
+// element loop left ptxas scheduling its f32 tier with up to 16 more
+// registers, 48 for bf16 storage against 32, and a third fewer blocks an
+// SM on unaligned operands; PERF.md). A vector of n >= 2^31
+// elements is read as a (rows, W) range, as the JAX DOT reads its (rows,
+// 128) rows: row(i) takes the 64-bit product, the columns stay 32-bit.
+//
+// Range<ReducedRowMajor<Ar, Coded>> is a range whose storage type is known
+// only at run time: it carries the storage code (accessor.cuh Storage)
+// beside its pointer, and r(i, j) and r(i, j) = v dispatch on it as
+// load_code and store_code do, with the same casts. It serves the
+// epilogues, which touch one value per output row: the GEMV's res and
+// result and the sweep's result are read and written through it rather
+// than instantiating each kernel once more per output storage.
+//
 // With DF's operators (df64.cuh) a kernel body written once against Ranges
 // runs at f32 or df64 arithmetic over any storage type (csrc/generic.cu).
 #pragma once
@@ -92,13 +114,21 @@ class Range {
   class Row {
    public:
     __device__ __forceinline__ explicit Row(St* p) : p_(p) {}
+    Row() = default;  // unset, for an array of rows assigned one by one
     __device__ __forceinline__ Ref operator()(int j) const { return Ref(p_ + j); }
     // columns j..j+V-1 as one aligned access (j's address a multiple of V
     // elements), each value widened to Ar
     template <int V>
     __device__ __forceinline__ void load(int j, Ar (&v)[V]) const {
-      widen(load_pack<std::remove_const_t<St>, V>(p_ + j), v);
+      widen(pack<V>(j), v);
     }
+    // its first half: the V stored values as read (Row::widen the second)
+    template <int V>
+    __device__ __forceinline__ Pack<std::remove_const_t<St>, V> pack(int j) const {
+      return load_pack<std::remove_const_t<St>, V>(p_ + j);
+    }
+    // the same row from column c on: its column 0 is this row's column c
+    __device__ __forceinline__ Row from(int64_t c) const { return Row(p_ + c); }
     // the same read of values read once: no L1 line allocated
     template <int V>
     __device__ __forceinline__ void stream(int j, Ar (&v)[V]) const {
@@ -150,6 +180,10 @@ class Range {
   __device__ __forceinline__ Ref operator()(int64_t i, int64_t j) const {
     return Ref(data_ + i * stride_ + j);
   }
+  // the value r(i, j) reads, with no Ref in between
+  __device__ __forceinline__ Ar get(int64_t i, int64_t j) const {
+    return Widen<Ar>::from(load_f32(data_[i * stride_ + j]));
+  }
   __device__ __forceinline__ Row row(int64_t i) const { return Row(data_ + i * stride_); }
   __host__ __device__ int64_t length(int d) const { return d == 0 ? rows_ : cols_; }
   __host__ __device__ int64_t stride() const { return stride_; }
@@ -165,6 +199,65 @@ class Range {
 
 template <class Ar, class St>
 using range_t = Range<ReducedRowMajor<Ar, St>>;
+
+// a row of such a range, as row(i) gives it
+template <class Ar, class St>
+using row_t = typename range_t<Ar, St>::Row;
+
+// the storage type of a range whose storage is chosen at run time (const
+// Coded: read-only)
+struct Coded {};
+
+// Range<ReducedRowMajor<Ar, Coded>> and its const form: a pointer, the
+// storage code of what it points to, an extent and a row stride
+template <class Ar, class C>
+class CodedRange {
+  using Ptr = std::conditional_t<std::is_const_v<C>, const void*, void*>;
+
+ public:
+  // one element: converts to Ar on read, rounds to the coded storage on
+  // assignment
+  class Ref {
+   public:
+    __device__ __forceinline__ Ref(Ptr p, int64_t i, int st) : p_(p), i_(i), st_(st) {}
+    __device__ __forceinline__ operator Ar() const {
+      return Widen<Ar>::from(load_code(p_, i_, st_));
+    }
+    __device__ __forceinline__ const Ref& operator=(Ar v) const {
+      static_assert(!std::is_const_v<C>, "store through a const Range");
+      store_code(p_, i_, st_, to_float(v));
+      return *this;
+    }
+
+   private:
+    Ptr p_;
+    int64_t i_;
+    int st_;
+  };
+
+  __host__ __device__ CodedRange(Ptr data, int st, int64_t rows, int64_t cols, int64_t stride)
+      : data_(data), st_(st), rows_(rows), cols_(cols), stride_(stride) {}
+
+  __device__ __forceinline__ Ref operator()(int64_t i, int64_t j) const {
+    return Ref(data_, i * stride_ + j, st_);
+  }
+
+ private:
+  Ptr data_;
+  int st_;
+  int64_t rows_, cols_, stride_;
+};
+
+template <class Ar>
+class Range<ReducedRowMajor<Ar, Coded>> : public CodedRange<Ar, Coded> {
+ public:
+  using CodedRange<Ar, Coded>::CodedRange;
+};
+template <class Ar>
+class Range<ReducedRowMajor<Ar, const Coded>> : public CodedRange<Ar, const Coded> {
+ public:
+  using CodedRange<Ar, const Coded>::CodedRange;
+};
 
 // host-side dispatch from an arithmetic code to the type
 template <class F>

@@ -84,18 +84,13 @@ __device__ __forceinline__ value_t<TIER> block_reduce(value_t<TIER> v) {
   return v;
 }
 
-// convert one vector step of storage values to floats (exact)
-template <class S, int V>
-__device__ __forceinline__ void unpack(const Pack<S, V>& pk, float (&out)[V]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) out[j] = load_f32(pk.v[j]);
-}
-
 // ---- per-thread accumulation of products x*y over V lanes ----
 // add(j, x, y) feeds lane j; add_vec feeds one vector step (lane j takes
-// element j); add_steps<K> feeds K vector steps of stored values (packs, as
-// loaded), in order, with the bits of K add_vec calls; result() folds the
-// lanes into one value of the tier.
+// element j); add_steps<K, WX, WY>(x, y) feeds K vector steps of stored
+// values (packs, as loaded), in order, with the bits of K add_vec calls,
+// each step widened just before it is added by WX::widen and WY::widen (a
+// Range's Row, range.cuh); result() folds the lanes into one value of the
+// tier.
 
 // bf16/f16 fixed tiers: operands and products rounded to the arithmetic
 // type, every add rounded too. Sums are pairwise: each vector step is
@@ -146,15 +141,14 @@ struct ThreadAcc {
   // the K step sums folded as the counter folds K pushes (step s meets s +
   // w for w = 1, 2, ..., the earlier on the left), entering at level log2 K:
   // one carry chain for K steps. The count must be a multiple of K.
-  template <int K, class SX, class SY>
-  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
-                                            const Pack<SY, V> (&y)[K]) {
+  template <int K, class WX, class WY, class PX, class PY>
+  __device__ __forceinline__ void add_steps(const PX (&x)[K], const PY (&y)[K]) {
     float p[K];
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       float xv[V], yv[V];
-      unpack(x[s], xv);
-      unpack(y[s], yv);
+      WX::widen(x[s], xv);
+      WY::widen(y[s], yv);
       p[s] = step_sum(xv, yv);
     }
 #pragma unroll
@@ -186,14 +180,13 @@ struct ThreadAcc<TIER_F32, V> {
 #pragma unroll
     for (int j = 0; j < V; ++j) add(j, x[j], y[j]);
   }
-  template <int K, class SX, class SY>
-  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
-                                            const Pack<SY, V> (&y)[K]) {
+  template <int K, class WX, class WY, class PX, class PY>
+  __device__ __forceinline__ void add_steps(const PX (&x)[K], const PY (&y)[K]) {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       float xv[V], yv[V];
-      unpack(x[s], xv);
-      unpack(y[s], yv);
+      WX::widen(x[s], xv);
+      WY::widen(y[s], yv);
       add_vec(xv, yv);
     }
   }
@@ -239,14 +232,13 @@ struct DFChains {
 #pragma unroll
     for (int j = 0; j < V; ++j) add(j, x[j], y[j]);
   }
-  template <int K, class SX, class SY>
-  __device__ __forceinline__ void add_steps(const Pack<SX, V> (&x)[K],
-                                            const Pack<SY, V> (&y)[K]) {
+  template <int K, class WX, class WY, class PX, class PY>
+  __device__ __forceinline__ void add_steps(const PX (&x)[K], const PY (&y)[K]) {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       float xv[V], yv[V];
-      unpack(x[s], xv);
-      unpack(y[s], yv);
+      WX::widen(x[s], xv);
+      WY::widen(y[s], yv);
       add_vec(xv, yv);
     }
   }

@@ -63,9 +63,21 @@
 // Arithmetic: f32 sums of f32 products, a partial per tile; df64 carries x
 // and the sums as (hi, lo) pairs: exact products of A with x_hi (two_prod),
 // f32 products with x_lo, two_sum accumulation, df_add across lanes.
+//
+// The sweep reads its operands and writes its result through the device
+// accessor (range.cuh), as the JAX kernel reads A and b and writes x through
+// Ranges: A an (n, n) range, a thread's row taken once and each tile's
+// columns from it (row.from), read V stored values at a time (row.load<V>)
+// or one element at a time (r(j)) where A is not aligned; b a (k, npad) f32
+// range; the result an (n, k) coded range (its storage chosen at run time).
+// The published x is not an operand: it is the sweep's cross-CTA protocol
+// (__stcg stores, load_cg reads through L2), which the JAX kernel keeps in
+// VMEM scratch; an accessor read would allocate L1 lines, which are not
+// coherent across CTAs within a launch. The leaf gather reads A as before.
 
 #include <cstdio>
 
+#include "range.cuh"
 #include "reduce.cuh"
 
 namespace accblas {
@@ -239,27 +251,31 @@ __device__ __forceinline__ void load_cg(float (&v)[V], const float* p) {
 }
 
 // the thread's kCols columns of a tile row: vectors g, g + kTpr, ... of V
-// elements, so that a warp's loads cover whole rows; zero past n
+// elements, so that a warp's loads cover whole rows; zero past n. arow is
+// the thread's row of A (a Range row), the tile its columns from c0 on.
 template <class SA>
-__device__ __forceinline__ void load_tile(float (&av)[kCols], const SA* arow, bool live,
-                                          int64_t c0, int64_t n, int g, int vec_ok) {
+__device__ __forceinline__ void load_tile(float (&av)[kCols], const row_t<float, const SA>& arow,
+                                          bool live, int64_t c0, int64_t n, int g, int vec_ok) {
   constexpr int V = 16 / sizeof(SA);
+  const row_t<float, const SA> tile = arow.from(c0);
 #pragma unroll
   for (int u = 0; u < kCols / V; ++u) {
-    const int64_t c = c0 + (g + kTpr * u) * V;
+    const int t = (g + kTpr * u) * V;  // the vector's first column in the tile
+    const int64_t c = c0 + t;
     if (vec_ok) {  // n is a multiple of V: a vector lies wholly inside n or past it
+      float v[V];
       if (live && c < n) {
-        const Pack<SA, V> pk = load_pack<SA, V>(arow + c);
-#pragma unroll
-        for (int e = 0; e < V; ++e) av[u * V + e] = load_f32(pk.v[e]);
+        tile.template load<V>(t, v);
       } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) av[u * V + e] = 0.f;
+        for (int e = 0; e < V; ++e) v[e] = 0.f;
       }
+#pragma unroll
+      for (int e = 0; e < V; ++e) av[u * V + e] = v[e];
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        av[u * V + e] = live && c + e < n ? load_f32(arow[c + e]) : 0.f;
+        av[u * V + e] = live && c + e < n ? static_cast<float>(tile(t + e)) : 0.f;
       }
     }
   }
@@ -319,7 +335,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int bi = block_of(t);
   const int64_t row = static_cast<int64_t>(bi) * kLeaf + r;
   const bool live = row < n;
-  const SA* arow = A + (live ? row : 0) * n;
+  // A, b and the result through the accessor; the published x is the
+  // sweep's own protocol (load_cg, __stcg), not an operand read
+  const range_t<float, const SA> ra(A, n, n, n);
+  const row_t<float, const SA> arow = ra.row(live ? row : 0);
 
   // before any wait: the leaf inverse's row r (columns as in load_tile for
   // f32; the leaf is column-major, as cuBLAS returns the batched solve), and
@@ -335,9 +354,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (t > 0) {
     load_tile<SA>(alast, arow, live, static_cast<int64_t>(block_of(t - 1)) * kLeaf, n, g, vec_ok);
   }
+  const range_t<float, const float> rb(bt, k, npad, npad);
   float b[KP];
 #pragma unroll
-  for (int q = 0; q < KP; ++q) b[q] = g == 0 && p0 + q < k ? bt[(p0 + q) * npad + row] : 0.f;
+  for (int q = 0; q < KP; ++q) {
+    b[q] = g == 0 && p0 + q < k ? static_cast<float>(rb(p0 + q, row)) : 0.f;
+  }
 
   // stream every published column block but the last, in solve order
   DotAcc<DF64> acc[KP];
@@ -402,13 +424,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   // pattern of CUTLASS's semaphore)
   __syncthreads();
   if (threadIdx.x == 0) st_release(tickets + 1, static_cast<unsigned>(t + 1));
-  // the result, off the chain
+  // the result, off the chain: (n, k) in the storage out_st, each value
+  // rounded to it once (hi + lo for df64)
+  const range_t<val_t<DF64>, Coded> ro(out, out_st, n, k, k);
 #pragma unroll
   for (int q = 0; q < KP; ++q) {
-    if (g == 0 && p0 + q < k && live) {
-      store_code(out, row * k + p0 + q, out_st,
-                 DF64 ? __fadd_rn(hi_of(x[q]), lo_of(x[q])) : hi_of(x[q]));
-    }
+    if (g == 0 && p0 + q < k && live) ro(row, p0 + q) = x[q];
   }
 }
 

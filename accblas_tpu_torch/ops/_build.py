@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -34,6 +36,8 @@ NVCC_FLAGS = (
 )
 
 _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
+# the build log's last line: nvcc's wall seconds for the library
+BUILD_SECONDS = "build seconds:"
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -71,11 +75,17 @@ def _start(name: str, out: Path):
     return proc, tmp
 
 
-def _finish(name: str, proc, tmp: str, out: Path):
+def _wait(proc, t0: float):
+    """nvcc's output and its wall seconds since t0, once it has exited."""
     log, _ = proc.communicate()
+    return log, time.perf_counter() - t0
+
+
+def _finish(name: str, proc, tmp: str, out: Path, log: str, seconds: float, builds: int):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
-    out.with_suffix(".log").write_text(log)
+    out.with_suffix(".log").write_text(
+        f"{log}{BUILD_SECONDS} {seconds:.1f} (nvcc wall time, {builds} built at once)\n")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
 
 
@@ -85,12 +95,16 @@ def build(*names: str) -> list[Path]:
     names = names or tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
     paths = [_lib_path(n) for n in names]
     jobs = []
+    # one waiter a compiler, so that each library's seconds are its own
+    pool = ThreadPoolExecutor(len(names) or 1)
     try:
+        t0 = time.perf_counter()
         for n, p in zip(names, paths):
             if not p.exists():
                 jobs.append((n, *_start(n, p), p))
-        for name, proc, tmp, out in jobs:
-            _finish(name, proc, tmp, out)
+        waits = [pool.submit(_wait, proc, t0) for _, proc, _, _ in jobs]
+        for (name, proc, tmp, out), done in zip(jobs, waits):
+            _finish(name, proc, tmp, out, *done.result(), len(jobs))
     finally:
         # on a failure, stop the other compilers and drop their partial output
         for _, proc, tmp, _ in jobs:
@@ -99,12 +113,15 @@ def build(*names: str) -> list[Path]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+        pool.shutdown()
     return paths
 
 
 def build_log(name: str) -> str:
     """nvcc's output for the current library of csrc/<name>.cu (ptxas'
-    registers and spills per kernel), built first if needed."""
+    registers and spills per kernel), built first if needed; its last line,
+    after BUILD_SECONDS, the seconds nvcc took and how many libraries were
+    compiled at once."""
     (path,) = build(name)
     return path.with_suffix(".log").read_text()
 

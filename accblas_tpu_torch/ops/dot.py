@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from ..accessor import dtypes
+from ..accessor.range import make_range
 from . import _build
 from . import df64 as dfm
 from .common import pow2_tree_sum, route
@@ -45,16 +46,22 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, cty
 
 def _dot_plain(x: torch.Tensor, y: torch.Tensor, tier: str, init: float):
     """The DOT in plain torch ops, any device: (hi, lo) float32 scalars.
-    Sums are pairwise trees of elementwise adds (``pow2_tree_sum``)."""
-    if tier.startswith("df64"):
-        xa, ya = x.float(), y.float()
+    x and y are read through const Ranges of the tier's arithmetic, as the
+    JAX kernel reads them (``_dot_kernel``). Sums are pairwise trees of
+    elementwise adds (``pow2_tree_sum``)."""
+    ar = "df64" if tier.startswith("df64") else tier
+    rx = make_range(ar, dtypes.canon(x.dtype), x, const=True)
+    ry = make_range(ar, dtypes.canon(y.dtype), y, const=True)
+    if ar == "df64":
+        # the accessor's cast-on-load to the f32 carriers of the df64 values
+        xa, ya = rx.load_raw().float(), ry.load_raw().float()
         p, e = dfm.two_prod(xa, ya) if tier == "df64_precise" else (xa * ya, None)
         tot = dfm.df_add(dfm.df_tree_sum(p, e), dfm.df_from(torch.tensor(init)))
         return tot.hi, tot.lo
-    ar_dt = dtypes.torch_dtype(tier)
-    # operands cast to the arithmetic type; products and each lane's
+    ar_dt = dtypes.torch_dtype(ar)
+    # operands cast to the arithmetic type on load; products and each lane's
     # pairwise sum round in it; the lanes fold in f32, rounded once at the end
-    p = x.float().to(ar_dt) * y.float().to(ar_dt)
+    p = rx.load() * ry.load()
     if tier == "f32":
         lanes = p
     else:

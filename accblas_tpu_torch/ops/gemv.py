@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from ..accessor import dtypes
+from ..accessor.range import make_range
 from . import _build
 from . import df64 as dfm
 from .common import pow2_ceil, pow2_tree_sum, route
@@ -51,22 +52,42 @@ def _res_term(res: torch.Tensor, beta: float, m: int, device) -> torch.Tensor:
 
 
 def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
-    """The GEMV in plain torch ops, any device. Row sums are pairwise trees
-    of elementwise adds (``pow2_tree_sum`` / ``df_tree_sum``)."""
+    """The GEMV in plain torch ops, any device. A and x are read through
+    const Ranges of the tier's arithmetic, res through an f32 one, and the
+    result is written through a Range over the storage of res (f32 ones for
+    the (hi, lo) words of ``df_out``), as the JAX kernels read and write
+    (``_gemv_kernel``, ``_gemv_fullrow_kernel``). Row sums are pairwise
+    trees of elementwise adds (``pow2_tree_sum`` / ``df_tree_sum``)."""
     m, n = a.shape
-    rv = _res_term(res, beta, m, a.device)
-    if tier.startswith("df64"):
-        av, xa = a.float(), x.float()
+    ar = "df64" if tier.startswith("df64") else tier
+    ra = make_range(ar, dtypes.canon(a.dtype), a, const=True)
+    rx = make_range(ar, dtypes.canon(x.dtype), x, const=True)
+    rr = make_range("f32", dtypes.canon(res.dtype), res, const=True)
+    rv = torch.zeros(m, dtype=torch.float32, device=a.device) if beta == 0.0 \
+        else rr.load() * beta  # res is never read when beta == 0
+    out = torch.empty(m, dtype=res.dtype, device=a.device)
+    ro = make_range(ar, dtypes.canon(res.dtype), out)
+    if ar == "df64":
+        # the accessor's cast-on-load to the f32 carriers of the df64 values
+        av, xa = ra.load_raw().float(), rx.load_raw().float()
         p, e = dfm.two_prod(av, xa) if tier == "df64_precise" else (av * xa, None)
-        out = dfm.df_add(dfm.df_mul_f32(dfm.df_tree_sum(p, e), alpha), dfm.df_from(rv))
-        return out if df_out else dfm.df_to_f32(out).to(res.dtype)
+        val = dfm.df_add(dfm.df_mul_f32(dfm.df_tree_sum(p, e), alpha), dfm.df_from(rv))
+        if df_out:
+            words = [torch.empty(m, dtype=torch.float32, device=a.device) for _ in "hl"]
+            for w, v in zip(words, (val.hi, val.lo)):
+                make_range("f32", "f32", w).store(v)
+            return dfm.DF(*words)
+        ro.store(val)
+        return out
     if tier == "f32":
-        s = pow2_tree_sum(a.float() * x.float())
-        return (s * alpha + rv).to(res.dtype)
-    # bf16/f16: exact f32 products of the rounded operands, an f32 sum per
-    # column block, rounded; the block partials add in the arithmetic type
+        s = pow2_tree_sum(ra.load() * rx.load())
+        ro.store(s * alpha + rv)
+        return out
+    # bf16/f16: exact f32 products of the operands cast to the arithmetic
+    # type on load, an f32 sum per column block, rounded; the block partials
+    # add in the arithmetic type
     ar_dt = dtypes.torch_dtype(tier)
-    p = a.float().to(ar_dt).float() * x.float().to(ar_dt).float()
+    p = ra.load().float() * rx.load().float()
     bn = _block_cols(n)
     nb = -(-n // bn)
     if nb * bn != n:
@@ -75,7 +96,8 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     acc = torch.zeros(m, dtype=ar_dt, device=a.device)
     for b in range(nb):
         acc = acc + part[:, b]
-    return (acc.float() * alpha + rv).to(ar_dt).to(res.dtype)
+    ro.store((acc.float() * alpha + rv).to(ar_dt))
+    return out
 
 
 def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int):

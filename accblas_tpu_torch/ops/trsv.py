@@ -54,6 +54,7 @@ import warnings
 import torch
 
 from ..accessor import dtypes
+from ..accessor.range import make_range
 from . import _build
 from . import df64 as dfm
 from .common import route, tri_mask
@@ -216,11 +217,14 @@ def _trsv_sweep_plain(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tens
         """x·mᵀ of x's hi words, and in the df64 tier of its lo words too."""
         return [x.hi @ m.T] + ([x.lo @ m.T] if df else [])
 
+    ra = make_range("f32", dtypes.canon(a.dtype), a, const=True)
+
     def blk(r0, c0):
-        """A[r0:r0+BLOCK, c0:c0+BLOCK] in f32, clipped at n (the rest reads as 0)."""
+        """A[r0:r0+BLOCK, c0:c0+BLOCK] in f32 through a window of A's const
+        Range, clipped at n (the rest reads as 0)."""
         out = torch.zeros(BLOCK, BLOCK, dtype=torch.float32, device=a.device)
         rr, cc = max(0, min(BLOCK, n - r0)), max(0, min(BLOCK, n - c0))
-        out[:rr, :cc] = a[r0 : r0 + rr, c0 : c0 + cc].float()
+        out[:rr, :cc] = ra.window(r0, c0, rr, cc).load()
         return out
 
     x = dfm.df_zeros(bt.shape, a.device)
@@ -246,7 +250,11 @@ def _trsv_sweep_plain(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tens
                 xs[s] = add(v[0], v[1]) if df else v[0]
             x.hi[:, r0 : r0 + BLOCK] = torch.cat([v.hi for v in xs], 1)
             x.lo[:, r0 : r0 + BLOCK] = torch.cat([v.lo for v in xs], 1)
-    return dfm.df_to_f32(x)[:, :n].T.to(out_dtype).contiguous()
+    # the result through a Range over its storage: df64 rounds hi + lo once
+    out = torch.empty(n, k, dtype=out_dtype, device=a.device)
+    xs = dfm.DF(x.hi[:, :n].T, x.lo[:, :n].T)
+    make_range(ar, dtypes.canon(out_dtype), out).store(xs if df else dfm.df_to_f32(xs))
+    return out
 
 
 def _trsv_sweep_cuda(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tensor:

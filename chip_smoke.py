@@ -6,9 +6,15 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the kernels of accblas_tpu_torch/csrc with nvcc, and
-     prints ptxas' registers and spills of the GEMV and DOT kernels'
-     instantiations, of the draw and column-sum kernels' and of the generic
-     AXPY's, GEMV's and window sum's at the three generic pairings;
+     prints ptxas' registers and spills of the GEMV, DOT and TRSV sweep
+     kernels' instantiations, of the draw and column-sum kernels' and of the
+     generic AXPY's, GEMV's and window sum's at the three generic pairings;
+     and a "range path" line for each main-path kernel that reads and
+     writes through the device accessor (dot_reduce, gemv_rows,
+     trsv_sweep): its registers and spill bytes over its instantiations and
+     its library's build seconds, from the build log, beside the figures of
+     the same kernels before they did (RANGE_PATH_BEFORE); a spill they did
+     not have fails the run;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -210,12 +216,50 @@ def phase_build():
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
     log_ptxas("dot_reduce", _build.build_log("dot"))
+    for line in _build.build_log("trsv").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas trsv: {line.strip()}")
+    log_range_path()
     for lib in ("devgen", "colsum"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib}: {line.strip()}")
     for name, (regs, spill) in generic_ptxas().items():
         log(f"ptxas {name}: {regs} registers, {spill} spill bytes")
+
+
+# the main-path kernels before they read and wrote through range.cuh (the
+# parent of the change that moved them): registers over their
+# instantiations, the most spill bytes of one, and the seconds nvcc took on
+# their source alone (scripts/torch_generic_ab.py --sass on an H100;
+# PERF.md section 6)
+RANGE_PATH_BEFORE = {
+    "dot_reduce": {"source": "dot", "registers": (32, 162), "spill": 24, "alone_s": 70.7},
+    "gemv_rows": {"source": "gemv", "registers": (32, 82), "spill": 28, "alone_s": 124.5},
+    "trsv_sweep": {"source": "trsv", "registers": (109, 128), "spill": 24, "alone_s": 23.3},
+}
+
+
+def log_range_path():
+    """A line per main-path kernel on the device accessor: its registers
+    and spills over its instantiations and its library's build seconds, from
+    the build log, beside RANGE_PATH_BEFORE. Raises on a spill the kernel
+    did not have."""
+    from accblas_tpu_torch.ops import _build
+
+    for kernel, before in RANGE_PATH_BEFORE.items():
+        text = _build.build_log(before["source"])
+        found = [rs for pretty, rs in ptxas_entries(text).items() if kernel in pretty]
+        regs = [r for r, _ in found]
+        spill = max(sp for _, sp in found)
+        lo, hi = before["registers"]
+        log(f"range path {kernel}: {len(found)} instantiations, registers "
+            f"{min(regs)}-{max(regs)} (before {lo}-{hi}), spill bytes at most {spill} (before "
+            f"{before['spill']}); {before['source']}.cu {_build.BUILD_SECONDS} "
+            f"{text.rsplit(_build.BUILD_SECONDS, 1)[1].strip()} (before: {before['alone_s']:.1f} "
+            f"s alone)")
+        if spill > before["spill"]:
+            raise AssertionError(f"{kernel} spills {spill} bytes (before {before['spill']})")
 
 
 # the generic pairings' template arguments (Ar, storage) as c++filt prints them

@@ -1,9 +1,10 @@
-"""Time the generic kernels (``csrc/generic.cu``) and the DOT (``csrc/dot.cu``)
-of this checkout beside another checkout's and beside design variants of
-this one, in turns, on one card.
+"""Time the generic kernels (``csrc/generic.cu``) and the main path's kernels
+(the DOT, ``csrc/dot.cu``; the GEMV, ``csrc/gemv.cu``; the TRSV sweep,
+``csrc/trsv.cu``) of this checkout beside another checkout's and beside
+design variants of this one, in turns, on one card.
 
     python3 scripts/torch_generic_ab.py [--baseline OTHER_ROOT] [--variants [A,B,...]]
-                                        [--reps 20]
+                                        [--sass] [--reps 20]
 
 OTHER_ROOT is the root of another checkout: its ``accblas_tpu_torch`` is
 imported from there and built into its own ``build/``. ``--variants`` adds
@@ -26,6 +27,16 @@ and the tier's roundings to bf16 left out (``bf16_unrounded``: other bits,
 by design). Every kernel's reads past L1: through the non-coherent path
 (``nc_loads``), or with 256-byte L2 fetches (``l2_256``).
 
+``--sass`` compiles ``dot.cu``, ``gemv.cu`` and ``trsv.cu`` of each tree
+once more, each alone, with the tree's own nvcc flags, into a temporary
+file, and prints one JSON line a tree and source: the seconds nvcc took,
+ptxas' registers and spill bytes of ``dot_reduce``, ``gemv_rows`` and
+``trsv_sweep`` (the range over their instantiations), and, from
+``cuobjdump -sass``, their global load and store instructions counted by
+opcode with its modifiers (``LDG.E.128``, ``.CONSTANT``, ``.EF``, ``STG.E``,
+...), summed over the instantiations; then, for each other tree, the
+instantiations whose counts differ from this tree's.
+
 All libraries are built first: this tree's, then the others at once, a
 variant reusing this tree's library where its sources are the same (a
 variant that does not build is reported and left out); then each tree is timed in a process of its own,
@@ -37,21 +48,35 @@ minima in ms: ``axpy`` over (16384, 32768) and over its window one column on
 window at (4096, 8192) of a (16384, 32768) parent, at f32/f32, bf16/f32 and
 f32/df64; the DOT's rows (Acc<f32,bf16> at 2^29, the main path's;
 Acc<f32,f32> at 2^27 and 2^27 + 17; Acc<f32,bf16>, the fixed bf16 and f16
-tiers and df64 fast and precise at 2^27); and the host us a DOT call takes
+tiers and df64 fast and precise at 2^27; Acc<f32,f8e4m3> and the bf16
+tier over f8e4m3 at 2^27; Acc<f32,f32> and Acc<f32,bf16> at 2^27 one
+element off alignment); the GEMV's (Acc<f32,bf16> at 16384^2 and
+the flagship 1024 x 2048; fixed f32, df64 fast and df64 precise at 16384^2;
+Acc<f32,f8e4m3> at 24576^2 with f32 x and with f8 x; Acc<f32,bf16> and
+fixed f32 at 16384^2 one element off); the TRSV sweep's at n = 16384 on a
+unit upper uniform(-1, 1) / n triangle (the kernel alone: f32, df64, TRSM
+k = 8, and f32 one element off; and the whole trsv call), each main-path
+row with its kernel's device ms beside ("<row> device": the mean of its
+torch.profiler records over 10 calls); and the host us a DOT call takes
 (medians: the call, its checks alone with the launch stubbed, its bare
-ctypes call). A hash of each result's bits closes the line; the last line
-says which trees' bits differ from this one's. Prints the card's name and
-power limit first. Compare trees only within one run.
+ctypes call). A hash of each row's result bits closes
+the line; the last line lists, for each tree, the rows whose bits differ
+from this one's. Prints the card's name and power limit first. Compare
+trees only within one run.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -332,15 +357,115 @@ def dot_host_split(dotops, build, call) -> dict:
     return out
 
 
+# the main path's kernels, by their source
+MAIN_KERNELS = {"dot": "dot_reduce", "gemv": "gemv_rows", "trsv": "trsv_sweep"}
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        return "/usr/local/cuda/bin/cuobjdump"
+    raise SystemExit("cuobjdump not found")
+
+
+def _demangle(names: list[str]) -> list[str]:
+    return subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                          check=True).stdout.split("\n")[:len(names)]
+
+
+def _is_global_access(op: str) -> bool:
+    """A load or store of device memory: LDG/STG, a generic LD/ST, or an
+    atomic or reduction there (not shared, constant or local memory)."""
+    base = op.split(".")[0]
+    return base in ("LDG", "STG", "LD", "ST", "ATOMG", "ATOM", "RED", "REDG")
+
+
+def sass_counts(lib: str, kernel: str) -> dict:
+    """{instantiation: {opcode with modifiers: count}} of `kernel`'s global
+    loads and stores in the library's SASS, with the number of its
+    instructions ("sass_ops") and a hash of their opcode sequence, operands
+    left out ("sass_hash": equal where the code differs at most in its
+    registers and addresses)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            ops[name] = []
+        elif name and (m := re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                                     line)):
+            ops[name].append(m.group(1))
+    out = {}
+    for pretty, seq in zip(_demangle(list(ops)), ops.values()):
+        if kernel in pretty:
+            c = collections.Counter(op for op in seq if _is_global_access(op))
+            out[pretty] = {**dict(sorted(c.items())), "sass_ops": len(seq),
+                           "sass_hash": hashlib.sha256("\n".join(seq).encode()).hexdigest()[:12]}
+    return out
+
+
+def ptxas_counts(log: str, kernel: str) -> dict:
+    """{instantiation: [registers, spill bytes]} of `kernel` from ptxas -v."""
+    found, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+            found[name] = [0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            found[name][1] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+    return {p: rs for p, rs in zip(_demangle(list(found)), found.values()) if kernel in p}
+
+
+def static_facts(root: str) -> dict:
+    """For each main-path source of the tree at `root`: nvcc's seconds
+    compiling it alone with the tree's flags, ptxas' registers and spills,
+    and the SASS global access counts of its kernel."""
+    sys.path.insert(0, root)
+    from accblas_tpu_torch.ops import _build
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src, kernel in MAIN_KERNELS.items():
+            lib = os.path.join(tmp, f"lib{src}.so")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o", lib,
+                   str(_build._CSRC / f"{src}.cu")]
+            t0 = time.perf_counter()
+            done = subprocess.run(cmd, capture_output=True, text=True, check=True)
+            seconds = time.perf_counter() - t0
+            regs = ptxas_counts(done.stdout + done.stderr, kernel)
+            sass = sass_counts(lib, kernel)
+            total = collections.Counter()
+            for c in sass.values():
+                total.update({k: v for k, v in c.items() if k not in ("sass_ops", "sass_hash")})
+            out[src] = {"build_s": round(seconds, 1), "kernel": kernel,
+                        "instantiations": len(regs),
+                        "registers": [min(r for r, _ in regs.values()),
+                                      max(r for r, _ in regs.values())],
+                        "spill_bytes": max(sp for _, sp in regs.values()),
+                        "global_access": dict(sorted(total.items())),
+                        "per_instantiation": {p: {"registers": regs.get(p, [0, 0])[0],
+                                                  "spill": regs.get(p, [0, 0])[1], **c}
+                                              for p, c in sass.items()}}
+    return out
+
+
 def child(root: str, reps: int, build_only: bool) -> None:
     sys.path.insert(0, root)
     import torch
 
     from accblas_tpu_torch.ops import _build
     from accblas_tpu_torch.ops import dot as dotops
+    from accblas_tpu_torch.ops import gemv as gemvops
     from accblas_tpu_torch.ops import generic as gen
+    from accblas_tpu_torch.ops import trsv as trsvops
 
-    _build.build("generic", "dot")
+    _build.build("generic", "dot", "gemv", "trsv")
     if build_only:
         return
     dev = torch.device("cuda", 0)
@@ -367,8 +492,32 @@ def child(root: str, reps: int, build_only: bool) -> None:
         words = [out.hi, out.lo] if isinstance(out, tuple) else [out]
         return b"".join(w.float().cpu().numpy().tobytes() for w in words)
 
+    def device_ms(fn, kernel: str) -> float:
+        """The mean device ms of `kernel`'s records over 10 calls
+        (torch.profiler): one record a call for the main path's kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in recs)
+        return sum(e.self_device_time_total for e in recs) / count / 1e3 if count else None
+
     row = {"tree": str(Path(gen.__file__).resolve().parents[2])}
-    bits = hashlib.sha256()
+    bits = {}
+
+    def timed(label: str, fn, kernel: str | None = None):
+        """The row's minimum, the hash of its result's bits, and for a
+        main-path kernel its device ms ("<label> device")."""
+        bits[label] = hashlib.sha256(result_bytes(fn())).hexdigest()[:16]
+        row[label] = best(fn)
+        if kernel:
+            row[f"{label} device"] = device_ms(fn, kernel)
+
     for st, ar in PAIRS:
         dt = torch.float32 if st == "f32" else torch.bfloat16
         a_st, x_st, p_st, o_st = a.to(dt), x.to(dt), parent.to(dt), other.to(dt)
@@ -377,35 +526,109 @@ def child(root: str, reps: int, build_only: bool) -> None:
                  "gemv": lambda: gen.gemv_generic(a_st, x_st, r, ar, "f32"),
                  "window": lambda: gen.window_sum(p_st, 4096, 8192, 8192, 16384, ar)}
         for kind, fn in calls.items():
-            bits.update(result_bytes(fn()))
-            row[f"{kind} {st}/{ar}"] = best(fn)
+            timed(f"{kind} {st}/{ar}", fn)
         del a_st, x_st, p_st, o_st
         torch.cuda.empty_cache()
-    del a, x, r, parent, other
+    del parent, other
     torch.cuda.empty_cache()
 
-    # the DOT: the main path's Acc<f32,bf16> at 2^29, then every tier at 2^27
-    bf, f16 = torch.bfloat16, torch.float16
+    # the GEMV: the main path's Acc<f32,bf16> (beta = 0) and the flagship,
+    # the tiers the TPU ran on its full-row kernel, the f8 probes' forms,
+    # and one element off alignment (the element-load body)
+    bf, f16, f8 = torch.bfloat16, torch.float16, torch.float8_e4m3fn
+    ab, xb = a.to(bf), x.to(bf)
+    fl = torch.rand(1024 * 2048 + 2048 + 1024, device=dev, generator=g) * 2 - 1
+    fa, fx, fr = fl[:1024 * 2048].view(1024, 2048).to(bf), fl[-3072:-1024].to(bf), fl[-1024:]
+    timed("gemv Acc<f32,bf16> 16384^2",
+          lambda: gemvops.acc_gemv(ab, xb, r, 1.0, 0.0, "f32"), "gemv_rows")
+    timed("gemv Acc<f32,bf16> 1024x2048",
+          lambda: gemvops.acc_gemv(fa, fx, fr, 1.0, 1.0, "f32"), "gemv_rows")
+    timed("gemv fixed f32 16384^2",
+          lambda: gemvops.gemv(a, x, r, 1.0, 0.0), "gemv_rows")
+    timed("gemv Acc<df64,f32> fast 16384^2",
+          lambda: gemvops.acc_gemv(a, x, r, 1.0, 0.0, "df64"), "gemv_rows")
+    timed("gemv Acc<df64,f32> precise 16384^2",
+          lambda: gemvops.acc_gemv(a, x, r, 1.0, 0.0, "df64", precise=True), "gemv_rows")
+    flat = torch.empty(n * n + 1, device=dev, dtype=bf)
+    off_b = flat[1:].view(n, n)
+    off_b.copy_(ab)
+    timed("gemv Acc<f32,bf16> 16384^2 one element off",
+          lambda: gemvops.acc_gemv(off_b, xb, r, 1.0, 0.0, "f32"), "gemv_rows")
+    del flat, off_b, ab
+    torch.cuda.empty_cache()
+    flat = torch.empty(n * n + 1, device=dev)
+    off_f = flat[1:].view(n, n)
+    off_f.copy_(a)
+    timed("gemv fixed f32 16384^2 one element off",
+          lambda: gemvops.gemv(off_f, x, r, 1.0, 0.0), "gemv_rows")
+    del flat, off_f
+    torch.cuda.empty_cache()
+    n8 = 24576
+    a8 = (torch.rand(n8, n8, device=dev, generator=g) * 2 - 1).to(f8)
+    x8f = torch.rand(n8, device=dev, generator=g) * 2 - 1
+    x8, r8 = x8f.to(f8), torch.zeros(n8, device=dev)
+    timed("gemv Acc<f32,f8e4m3> 24576^2 f32 x",
+          lambda: gemvops.acc_gemv(a8, x8f, r8, 1.0, 0.0, "f32"), "gemv_rows")
+    timed("gemv Acc<f32,f8e4m3> 24576^2 f8 x",
+          lambda: gemvops.acc_gemv(a8, x8, r8, 1.0, 0.0, "f32"), "gemv_rows")
+    del a8, x8f, x8, r8
+    torch.cuda.empty_cache()
+
+    # the TRSV sweep at 16384 on a unit upper uniform(-1, 1) / n triangle:
+    # the kernel alone (phase 1 once, outside), and the whole call
+    at = a.mul(1.0 / n)
+    del a
+    torch.cuda.empty_cache()
+    nb = n // trsvops.BLOCK
+    inv = trsvops._leaf_inverses(
+        trsvops._extract_leaf_diag(at, nb * trsvops.BLOCK // trsvops.LEAF, False, True), False)
+    ones = torch.ones(n, 1, device=dev)
+    bt1 = trsvops._rhs_panels(ones, nb)
+    bt8 = trsvops._rhs_panels(torch.rand(n, 8, device=dev, generator=g), nb)
+    for ar in ("f32", "df64"):
+        timed(f"trsv_sweep {ar} 16384",
+              lambda: trsvops._trsv_sweep_cuda(at, inv, bt1, False, ar, torch.float32),
+              "trsv_sweep")
+    timed("trsv_sweep f32 16384 k=8",
+          lambda: trsvops._trsv_sweep_cuda(at, inv, bt8, False, "f32", torch.float32),
+          "trsv_sweep")
+    timed("trsv f32 16384 (the call)", lambda: trsvops.trsv(at, ones[:, 0], "upper", True))
+    flat = torch.empty(n * n + 1, device=dev)
+    off_t = flat[1:].view(n, n)
+    off_t.copy_(at)
+    timed("trsv_sweep f32 16384 one element off",
+          lambda: trsvops._trsv_sweep_cuda(off_t, inv, bt1, False, "f32", torch.float32),
+          "trsv_sweep")
+    del flat, off_t, at, inv, bt1, bt8, x, r
+    torch.cuda.empty_cache()
+
+    # the DOT: the main path's Acc<f32,bf16> at 2^29, then every tier at
+    # 2^27, and one element off alignment (the element-load body)
     xb, yb = (torch.rand(2**29, device=dev, generator=g).mul_(2).sub_(1).to(bf) for _ in "xy")
     main = lambda: dotops.acc_dot(xb, yb, "f32")  # noqa: E731
-    bits.update(result_bytes(main()))
-    row["dot Acc<f32,bf16> 2^29"] = best(main)
+    timed("dot Acc<f32,bf16> 2^29", main, "dot_reduce")
     row["dot host us Acc<f32,bf16> 2^29"] = dot_host_split(dotops, _build, main)
     del xb, yb
     torch.cuda.empty_cache()
     x27, y27 = (torch.rand(2**27 + 17, device=dev, generator=g) * 2 - 1 for _ in "xy")
     xs, ys = x27[:2**27], y27[:2**27]
     xb, yb, xh, yh = xs.to(bf), ys.to(bf), xs.to(f16), ys.to(f16)
+    xbo, ybo = x27.to(bf)[1:2**27 + 1], y27.to(bf)[1:2**27 + 1]
+    x8, y8 = xs.to(f8), ys.to(f8)
     dots = {"Acc<f32,f32> 2^27": lambda: dotops.acc_dot(xs, ys, "f32"),
             "Acc<f32,f32> 2^27 + 17": lambda: dotops.acc_dot(x27, y27, "f32"),
             "Acc<f32,bf16> 2^27": lambda: dotops.acc_dot(xb, yb, "f32"),
             "fixed bf16 2^27": lambda: dotops.dot(xb, yb),
             "fixed f16 2^27": lambda: dotops.dot(xh, yh),
             "Acc<df64,f32> fast 2^27": lambda: dotops.acc_dot(xs, ys, "df64"),
-            "Acc<df64,f32> precise 2^27": lambda: dotops.acc_dot(xs, ys, "df64", precise=True)}
+            "Acc<df64,f32> precise 2^27": lambda: dotops.acc_dot(xs, ys, "df64", precise=True),
+            "Acc<f32,f8e4m3> 2^27": lambda: dotops.acc_dot(x8, y8, "f32"),
+            "fixed bf16 over f8e4m3 2^27": lambda: dotops.acc_dot(x8, y8, "bf16"),
+            "Acc<f32,f32> 2^27 one element off":
+                lambda: dotops.acc_dot(x27[1:2**27 + 1], y27[1:2**27 + 1], "f32"),
+            "Acc<f32,bf16> 2^27 one element off": lambda: dotops.acc_dot(xbo, ybo, "f32")}
     for label, fn in dots.items():
-        bits.update(result_bytes(fn()))
-        row[f"dot {label}"] = best(fn)
+        timed(f"dot {label}", fn, "dot_reduce")
     row["dot host us Acc<f32,f32> 2^27"] = dot_host_split(dotops, _build, dots["Acc<f32,f32> 2^27"])
     t = torch.zeros(2, device=dev)
     row["torch host us"] = {"torch.empty(2)": host_us(lambda: torch.empty(2, device=t.device)),
@@ -413,7 +636,7 @@ def child(root: str, reps: int, build_only: bool) -> None:
                             "out[0], out[1]": host_us(lambda: (t[0], t[1])),
                             "unbind": host_us(t.unbind),
                             "torch.dot 2^27": host_us(lambda: torch.dot(xs, ys))}
-    row["bits"] = bits.hexdigest()[:16]
+    row["bits"] = bits
     print(json.dumps(row), flush=True)
 
 
@@ -422,10 +645,17 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", help="root of the other checkout")
     ap.add_argument("--variants", nargs="?", const=",".join(VARIANTS), default="",
                     help="time these design variants too (a comma list; all if none named)")
+    ap.add_argument("--sass", action="store_true",
+                    help="compile dot.cu, gemv.cu and trsv.cu of each tree alone and print "
+                         "their build seconds, registers and SASS global access counts")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.child and args.static:
+        print(json.dumps(static_facts(args.child)), flush=True)
+        return 0
     if args.child:
         child(args.child, args.reps, args.build_only)
         return 0
@@ -463,6 +693,29 @@ def main(argv=None) -> int:
                 return 1
             print(json.dumps({"tree": root, "build": "failed", "log": log[-3000:]}), flush=True)
             trees.remove(root)
+    if args.sass:
+        facts = {}
+        for root in trees:
+            out = subprocess.run(cmd + [root, "--static"], capture_output=True, text=True)
+            if out.returncode:
+                sys.stdout.write(out.stdout + out.stderr)
+                return 1
+            facts[root] = json.loads(out.stdout.strip().splitlines()[-1])
+            for src, f in facts[root].items():
+                print(json.dumps({"tree": root, "source": f"{src}.cu",
+                                  **{k: v for k, v in f.items() if k != "per_instantiation"}}),
+                      flush=True)
+        for root in trees:
+            if root == this:
+                continue
+            for src, f in facts[root].items():
+                mine = facts[this][src]["per_instantiation"]
+                theirs = f["per_instantiation"]
+                differ = {p: {"this": mine.get(p), "other": theirs.get(p)}
+                          for p in sorted(set(mine) | set(theirs)) if mine.get(p) != theirs.get(p)}
+                print(json.dumps({"sass_and_registers_differ": f"{src}.cu", "tree": root,
+                                  "instantiations": len(differ), "of": len(mine),
+                                  "differences": differ}), flush=True)
     bits = {}
     for root in trees + trees[::-1]:
         out = subprocess.run(cmd + [root], capture_output=True, text=True)
@@ -471,7 +724,8 @@ def main(argv=None) -> int:
         if out.returncode:
             return 1
         bits[root] = json.loads(out.stdout.strip().splitlines()[-1])["bits"]
-    differ = [root for root, b in bits.items() if b != bits[this]]
+    differ = {root: [k for k in b if b[k] != bits[this].get(k)] for root, b in bits.items()
+              if b != bits[this]}
     print(json.dumps({"bits_differ_from_this_tree": differ}), flush=True)
     return 0
 
