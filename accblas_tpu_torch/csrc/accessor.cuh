@@ -37,6 +37,24 @@ __device__ __forceinline__ float load_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float load_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ float load_f32(__nv_fp8_e5m2 v) { return static_cast<float>(v); }
 
+template <class T>
+constexpr bool is_f8 = std::is_same_v<T, __nv_fp8_e4m3> || std::is_same_v<T, __nv_fp8_e5m2>;
+
+// two stored f8 values, lo at the lower address, widened by one paired
+// conversion (cvt.rn.f16x2.e4m3x2 / e5m2x2) and then each half to float:
+// load_f32 converts one value through the same two instructions (its byte
+// beside a zero one), so each value, NaN, inf, subnormals and -0 included,
+// is the one load_f32 gives
+template <class T>
+__device__ __forceinline__ float2 load_f32x2(const T* p) {
+  static_assert(is_f8<T>, "a paired conversion of f8 storage");
+  __nv_fp8x2_storage_t two;
+  memcpy(&two, p, sizeof(two));
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      two, std::is_same_v<T, __nv_fp8_e4m3> ? __NV_E4M3 : __NV_E5M2);
+  return __half22float2(__half2(h));
+}
+
 // ---- cast-on-store: float -> storage, round to nearest even ----
 // f8 stores do not saturate: e4m3 overflows to NaN and e5m2 to inf, as
 // torch's own conversion does.

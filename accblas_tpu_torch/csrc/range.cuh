@@ -17,7 +17,8 @@
 // the V stored values at columns j..j+V-1 as one aligned access (load_pack
 // of accessor.cuh), each widened to Ar as a single read is; row.stream<V>
 // is the same read with no L1 line allocated, for values read once
-// (row.stream_pack<V> and Row::widen its two halves).
+// (row.stream_pack<V> and Row::widen its two halves); Row::widen_paired
+// widens a pack of f8 values two at a time, the same values.
 // row.store<V>(j, v) rounds V values to St as a single store does and writes
 // them at columns j..j+V-1 as one aligned access (store_pack; V x sizeof(St)
 // bytes, two 16-byte stores for 8 f32 values); row.store_stream<V> is the
@@ -145,6 +146,22 @@ class Range {
                                                  Ar (&v)[V]) {
 #pragma unroll
       for (int u = 0; u < V; ++u) v[u] = Widen<Ar>::from(load_f32(pack.v[u]));
+    }
+    // widen's values with f8 storage converted two at a time (load_f32x2),
+    // the same values; any other storage as widen
+    template <int V>
+    __device__ __forceinline__ static void widen_paired(
+        const Pack<std::remove_const_t<St>, V>& pack, Ar (&v)[V]) {
+      if constexpr (is_f8<std::remove_const_t<St>> && V % 2 == 0) {
+#pragma unroll
+        for (int u = 0; u < V; u += 2) {
+          const float2 f = load_f32x2(&pack.v[u]);
+          v[u] = Widen<Ar>::from(f.x);
+          v[u + 1] = Widen<Ar>::from(f.y);
+        }
+      } else {
+        widen(pack, v);
+      }
     }
     // columns j..j+V-1 set to v, each value rounded to St as r(i, j) = v
     // rounds it, written as one aligned access (j's address a multiple of V

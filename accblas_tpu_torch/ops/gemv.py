@@ -8,10 +8,19 @@
 - ``xla_gemv``: the vendor tier, ``torch.mv``.
 
 The result takes the storage dtype of `res`. With beta == 0, `res` is never
-read. A CUDA tensor runs the hand-written kernel of ``csrc/gemv.cu`` (which
-replaces the Pallas kernels ``_gemv_kernel`` and ``_gemv_fullrow_kernel`` of
+read. A CUDA tensor runs a hand-written kernel of ``csrc/gemv.cu`` (the two
+replace the Pallas kernels ``_gemv_kernel`` and ``_gemv_fullrow_kernel`` of
 ``accblas_tpu.ops.gemv``); a CPU tensor runs ``_gemv_plain``, the same
 function in plain torch ops. Nothing falls back from one to the other.
+
+The C entry (``accblas_gemv``) chooses the kernel by what the call is:
+``gemv_staged``, whose CTAs widen x once into shared memory and then walk
+the rows, for A and x both stored in f8, in the f32 and df64 tiers, with A
+and x 16-byte aligned and n a multiple of 16, up to n = 46480 columns (the
+widest x a CTA's shared memory stages); otherwise ``gemv_rows``, one warp a
+row, which reads and widens x along each row. The width edge is a routing
+by shape: past it the staged x does not fit. Both kernels give the same
+bits. A launch that fails raises; neither kernel stands in for the other.
 Counterpart of ``accblas_tpu.ops.gemv``.
 """
 
@@ -27,14 +36,25 @@ from . import _build
 from . import df64 as dfm
 from .common import pow2_ceil, pow2_tree_sum, route
 
-# launches of the GEMV kernel, counted where the wrapper launches it
+# launches of the GEMV kernels, counted where the wrapper launches each:
+# gemv_rows, and gemv_staged (A and x stored in f8)
 launches = 0
+staged_launches = 0
+
+# the kernels a call may ask the C entry for, in bits 16-17 of its codes:
+# its own choice, or one kernel forced (the tests and chip_smoke.py hold
+# the two to each other); a forced gemv_staged it would not choose is an
+# error
+FORCE = {None: 0, "rows": 1, "staged": 2}
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
 ]
+# the C entry's report of the kernel it launched: 1 gemv_staged, 0 gemv_rows
+_ran = ctypes.c_int()
+_RAN = ctypes.byref(_ran)
 
 
 def _block_cols(n: int) -> int:
@@ -100,11 +120,13 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     return out
 
 
-def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int):
-    """Launch the csrc/gemv.cu kernel on the current stream. `codes`: the
-    storage codes of A, x and res and the tier code, 4 bits each from the
-    lowest (the C entry's `codes`)."""
-    global launches
+def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int,
+               force: str | None = None):
+    """Launch a csrc/gemv.cu kernel on the current stream, the one the C
+    entry chooses unless `force` names one (FORCE), and count the launch
+    under the kernel the entry reports. `codes`: the storage codes of A, x
+    and res and the tier code, 4 bits each from the lowest (`_codes`)."""
+    global launches, staged_launches
     if not (a.is_contiguous() and x.is_contiguous() and res.is_contiguous()):
         raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
     m, n = a.shape
@@ -115,10 +137,20 @@ def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int):
         with _build.on_device(a):
             err = fn(a.data_ptr(), x.data_ptr(), res.data_ptr(), out.data_ptr(),
                      None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
-                     _block_cols(n), codes, _build.stream(a))
+                     _block_cols(n), codes | FORCE[force] << 16, _build.stream(a), _RAN)
         _build.check(err, "gemv kernel launch")
-        launches += 1
+        if _ran.value:
+            staged_launches += 1
+        else:
+            launches += 1
     return dfm.DF(out, out_lo) if df_out else out
+
+
+def _codes(a, x, res, tier: str) -> int:
+    """The C entry's `codes`: the storage codes of A, x and res and the tier
+    code, 4 bits each from the lowest; raises on a dtype no kernel takes."""
+    return (_build.storage_code(a, "gemv A") | _build.storage_code(x, "gemv x") << 4
+            | _build.storage_code(res, "gemv res") << 8 | _build.TIER_CODE[tier] << 12)
 
 
 def _gemv_call(a, x, res, alpha, beta, ar: str, precise: bool, df_out: bool = False):
@@ -133,8 +165,7 @@ def _gemv_call(a, x, res, alpha, beta, ar: str, precise: bool, df_out: bool = Fa
         raise ValueError(f"shape mismatch: A{tuple(a.shape)} x{tuple(x.shape)} "
                          f"res{tuple(res.shape)}")
     tier = _build.tier(ar, precise, "gemv")
-    codes = (_build.storage_code(a, "gemv A") | _build.storage_code(x, "gemv x") << 4
-             | _build.storage_code(res, "gemv res") << 8 | _build.TIER_CODE[tier] << 12)
+    codes = _codes(a, x, res, tier)
     alpha, beta = float(alpha), float(beta)
     if route("gemv", a, x, res) == "cuda":
         return _gemv_cuda(a, x, res, alpha, beta, df_out, codes)

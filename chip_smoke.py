@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      trsv_sweep): its registers and spill bytes over its instantiations and
      its library's build seconds, from the build log, beside the figures of
      the same kernels before they did (RANGE_PATH_BEFORE); a spill they did
-     not have fails the run;
+     not have fails the run; and every instantiation of dot_reduce,
+     gemv_rows, gemv_staged and trsv_sweep held to its registers and spill
+     bytes in accblas_tpu_torch/csrc/registers.json ("registers" lines): a
+     rise of either, or an instantiation the table lacks, fails the run;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
@@ -90,9 +93,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      counterparts at the probes' own shapes, each checked against its plain
      version and float64 and timed ("time probe" lines): acc_dot
      Acc<f32,f32> at 2^27 and 2^27 + 17 (probe_dot_ragged.py's draws),
-     acc_gemv Acc<f32,f8e4m3> at 24576^2 with f32 and f8 x (probe_r4e.py),
-     acc_gemv df64 fast and precise at 16384^2 over f32 and bf16
-     (probe_gemv_df64.py's draws);
+     acc_gemv Acc<f32,f8e4m3> at 24576^2 with f32 and f8 x (probe_r4e.py;
+     f8 x takes gemv_staged, x widened once a CTA), acc_gemv df64 fast and
+     precise at 16384^2 over f32 and bf16 (probe_gemv_df64.py's draws);
+     then gemv_staged against gemv_rows bit for bit on the probe's f8
+     operands in the f32 and df64 tiers and with e5m2 x, and acc_gemv
+     on each side of the width edge (STAGED_MAX_N columns: gemv_staged; 16
+     more: gemv_rows) against its plain version and float64 ("staged"
+     lines); gemv_staged's counter is reset before the phase and required
+     to have launched;
   6. drivers: the benchmark drivers (accblas_tpu_torch.bench) at their
      default sizes through their main(): dot_benchmark (n = 2^27) and
      gemv_benchmark (16384^2) in speed mode and in error mode (DOT over
@@ -112,7 +121,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      narrow storage more than NARROW_TOL from it there, a draw of gen_f32 that differs in
      any bit from its numpy replay (first and last 2^20 elements of the
      16384^2 draw), or a kernel of the path (DOT, GEMV, the leaf gather,
-     the sweep, the draw) that the drivers never launched;
+     the sweep, the draw, gemv_staged for the f8 column) that the drivers
+     never launched;
   7. trsm routes: on the LU factor of the TRSV driver's master at n = 4096,
      8192 and 16384, k = 1, 8, 16, 32, 64 and 128 (upper, non-unit), the
      sweep, the blocked composition and xla_trsm side by side for f32
@@ -215,11 +225,13 @@ def phase_build():
     paths = _build.build()
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
+    log_ptxas("gemv_staged", _build.build_log("gemv"))
     log_ptxas("dot_reduce", _build.build_log("dot"))
     for line in _build.build_log("trsv").splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas trsv: {line.strip()}")
     log_range_path()
+    check_registers()
     for lib in ("devgen", "colsum"):
         for line in _build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
@@ -260,6 +272,49 @@ def log_range_path():
             f"s alone)")
         if spill > before["spill"]:
             raise AssertionError(f"{kernel} spills {spill} bytes (before {before['spill']})")
+
+
+# registers and spill bytes of every instantiation of these kernels, by
+# source, as the checkout's sources build them (scripts/torch_registers.py
+# writes the table): a build above it fails the run
+REGISTERS = Path(__file__).resolve().parent / "accblas_tpu_torch" / "csrc" / "registers.json"
+GATED = {"dot": ("dot_reduce",), "gemv": ("gemv_rows", "gemv_staged"), "trsv": ("trsv_sweep",)}
+
+
+def kernel_registers(text: str, kernels) -> dict:
+    """{kernel: {"kernel<template arguments>": [registers, spill bytes]}}
+    of the named kernels' instantiations in a build log."""
+    out = {k: {} for k in kernels}
+    for pretty, rs in ptxas_entries(text).items():
+        for k in kernels:
+            if f"::{k}<" in pretty:
+                out[k][pretty[pretty.index(f"::{k}<") + 2:pretty.index(">(") + 1]] = rs
+    return out
+
+
+def check_registers():
+    """Each instantiation of GATED's kernels against REGISTERS: a line per
+    kernel; raises on one with more registers or spill bytes than the table
+    gives it, or one the table lacks."""
+    from accblas_tpu_torch.ops import _build
+
+    table = json.loads(REGISTERS.read_text())
+    bad = []
+    for src, kernels in GATED.items():
+        for kernel, found in kernel_registers(_build.build_log(src), kernels).items():
+            want = table[kernel]
+            above = [f"{inst}: {r} registers, {s} spill bytes (table: "
+                     f"{want.get(inst, 'none')})" for inst, (r, s) in found.items()
+                     if inst not in want or r > want[inst][0] or s > want[inst][1]]
+            below = sum(r < want[i][0] for i, (r, _) in found.items() if i in want)
+            log(f"registers {kernel}: {len(found)} instantiations ({len(want)} in "
+                f"{REGISTERS.name}), {len(above)} above the table or not in it, {below} below "
+                f"it; at most {max(r for r, _ in found.values())} registers, "
+                f"{max(s for _, s in found.values())} spill bytes")
+            bad += above
+    if bad:
+        raise AssertionError("registers above accblas_tpu_torch/csrc/registers.json:\n"
+                             + "\n".join(bad))
 
 
 # the generic pairings' template arguments (Ar, storage) as c++filt prints them
@@ -1534,16 +1589,55 @@ def _colsum_case(chk: Checks, label: str, a, vec: bool) -> float:
     return diff
 
 
-def phase_f8_probe() -> tuple[dict, dict]:
+# the widest n whose staged x fits in a CTA's shared memory (csrc/gemv.cu's
+# C entry sends f8 A and x up to it to gemv_staged)
+STAGED_MAX_N = 46480
+
+
+def staged_checks(chk: Checks, a8, x8, r, dev):
+    """gemv_staged against gemv_rows on the same operands, each forced
+    through the wrapper's launch (_gemv_cuda), bit for bit: the probe's f8
+    operands in the f32 and df64 tiers, and its A with x as e5m2; then
+    acc_gemv on each side of the width edge (STAGED_MAX_N columns, and 16
+    more), each taking its kernel, against its plain version and float64."""
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.utils import devgen
+
+    x5 = x8.float().to(torch.float8_e5m2)
+    for x, tier in ((x8, "f32"), (x8, "df64_fast"), (x8, "df64_precise"), (x5, "f32")):
+        codes = gemvops._codes(a8, x, r, tier)
+        got = [gemvops._gemv_cuda(a8, x, r, 1.5, 0.5, False, codes, force)
+               for force in ("staged", "rows")]
+        same = torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
+        chk.record(same, f"staged gemv {tier} f8e4m3 A, {x.dtype} x {N_PROBE}^2: gemv_staged "
+                         f"and gemv_rows " + ("bit-equal" if same else "differ"))
+    m, edge = 2048, STAGED_MAX_N
+    for n in (edge, edge + 16):
+        a = devgen.gen_f32((m, n), SEED, "p4a_a", device=dev).to(torch.float8_e4m3fn)
+        x = devgen.gen_f32((n,), SEED, "p4a_x", device=dev).to(torch.float8_e4m3fn)
+        rn = devgen.gen_f32((m,), SEED, "gemv_res", device=dev)
+        before = (gemvops.launches, gemvops.staged_launches)
+        _gemv_case(chk, "width edge, f8e4m3 A and x", a, x, rn, 1.5, 0.5, "f32")
+        took = ("gemv_staged" if gemvops.staged_launches > before[1] else
+                "gemv_rows" if gemvops.launches > before[0] else "nothing")
+        want = "gemv_staged" if n == edge else "gemv_rows"
+        chk.record(took == want,
+                   f"staged gemv width edge n={n} (STAGED_MAX_N {edge}): took {took}")
+        del a, x, rn
+    torch.cuda.synchronize()
+
+
+def phase_f8_probe() -> tuple[list, dict]:
     """scripts/probe_r4a.py's port at N = 24576 through its main(), then
     col_sums (csrc/colsum.cu) against its plain version and float64 at
     24576^2, ragged and misaligned, and timed beside its bound, its plain
     version and the one PyTorch call; then the other TPU probes'
     counterparts at their shapes (acc_dot at 2^27 and 2^27 + 17, acc_gemv
     Acc<f32,f8e4m3> at 24576^2, acc_gemv df64 at 16384^2), each checked and
-    timed. The col_sums counter is reset just before the phase and read just
-    after its col_sums calls. Returns the col_sums record and the probe rows
-    by kernel record name."""
+    timed, and gemv_staged's checks (staged_checks). The col_sums and
+    gemv_staged counters are reset just before the phase and read just
+    after it. Returns the col_sums and gemv_staged records and the probe
+    rows by kernel record name."""
     from accblas_tpu_torch import acc_dot, acc_gemv
     from accblas_tpu_torch.bench import probe_r4a
     from accblas_tpu_torch.ops import colsum
@@ -1555,7 +1649,7 @@ def phase_f8_probe() -> tuple[dict, dict]:
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     chk = Checks()
-    colsum.launches = 0
+    colsum.launches = gemvops.staged_launches = 0
     # ---- (a) the probe, through its entry point ----
     probe = probe_r4a.main(["--n", str(N_PROBE)])
 
@@ -1594,6 +1688,7 @@ def phase_f8_probe() -> tuple[dict, dict]:
     before = {"dot": dotops.launches, "gemv": gemvops.launches}
     dot_counted = {"dot_reduce": lambda: dotops.launches}
     gemv_counted = {"gemv_rows": lambda: gemvops.launches}
+    staged_counted = {"gemv_staged": lambda: gemvops.staged_launches}
     kx, ky = threefry.split(threefry.key(0))  # scripts/probe_dot_ragged.py:82-84
     for n in PROBE_DOT_NS:
         x = threefry.uniform(kx, (n,), -1.0, 1.0, dev)
@@ -1611,15 +1706,21 @@ def phase_f8_probe() -> tuple[dict, dict]:
     x32 = x8.float()
     _gemv_case(chk, "probe_r4e V1/V3 Acc<f32,f8e4m3 A, f32 x>", a8, x32, r, 1.0, 0.0, "f32")
     _gemv_case(chk, "probe_r4e V2 Acc<f32,f8e4m3>", a8, x8, r, 1.0, 0.0, "f32")
-    for label, x, lib in (("f32 x", x32, None),
-                          ("f8 x", x8, _library_or_none("torch._scaled_mm k=16",
-                                                        probe_r4a.scaled_mm_form(a8, x8, 16)))):
+    for label, x, lib, counted in (
+            ("f32 x", x32, None, gemv_counted),
+            ("f8 x", x8, _library_or_none("torch._scaled_mm k=16",
+                                          probe_r4a.scaled_mm_form(a8, x8, 16)), staged_counted)):
         rows["gemv"][f"acc_gemv Acc<f32,f8e4m3> {label} {N_PROBE}^2"] = _probe_time(
             f"acc_gemv Acc<f32,f8e4m3> {label} {N_PROBE}^2",
             lambda: acc_gemv(a8, x, r, 1.0, 0.0, ar="f32"),
             lambda: gemvops._gemv_plain(a8, x, r, 1.0, 0.0, "f32", False), lib,
             N_PROBE * N_PROBE + N_PROBE * x.element_size() + 4 * N_PROBE,
-            2 * N_PROBE * N_PROBE, gemv_counted)
+            2 * N_PROBE * N_PROBE, counted)
+    staged = rows["gemv"][f"acc_gemv Acc<f32,f8e4m3> f8 x {N_PROBE}^2"]
+    staged["max_abs_err"] = float((acc_gemv(a8, x8, r, 1.0, 0.0, ar="f32")
+                                   - gemvops._gemv_plain(a8, x8, r, 1.0, 0.0, "f32", False))
+                                  .abs().max())
+    staged_checks(chk, a8, x8, r, dev)
     del a8, x8, x32, r
     torch.cuda.empty_cache()
     # scripts/probe_gemv_df64.py:101-108: A and x uniform(-1, 1) under the
@@ -1653,6 +1754,8 @@ def phase_f8_probe() -> tuple[dict, dict]:
     log(f"f8 probe phase: the probes' counterparts launched {probe_launches}")
     chk.record(min(probe_launches.values()) >= 1,
                f"the probes' counterparts launched DOT and GEMV: {probe_launches}")
+    staged_launches = gemvops.staged_launches
+    chk.record(staged_launches >= 1, f"f8 probe phase launched gemv_staged: {staged_launches}")
     log(f"f8 probe phase: {time.perf_counter() - t_phase:.1f} s")
     chk.raise_failures()
     record = {"name": "col_sums", "route": "cuda", "source": "accblas_tpu_torch/csrc/colsum.cu",
@@ -1660,7 +1763,13 @@ def phase_f8_probe() -> tuple[dict, dict]:
               "max_abs_err": max_abs, **rec,
               "probe": {k: {f: v for f, v in res.items() if f != "out"}
                         for k, res in probe.items() if res is not None}}
-    return record, rows
+    staged_record = {"name": "gemv_staged", "route": "cuda",
+                     "source": "accblas_tpu_torch/csrc/gemv.cu",
+                     "replaces": "scripts/probe_r4e.py:93", "launches": staged_launches,
+                     **{k: staged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "device_ms")},
+                     "shape": f"Acc<f32,f8e4m3> {N_PROBE}^2, f8 x"}
+    return [record, staged_record], rows
 
 
 # --------------------------------------------------------------------------
@@ -1883,7 +1992,7 @@ def phase_drivers() -> None:
     log(f"drivers: host data from {host.describe()}")
     bad = _check_draws(dev)
     modules = {"dot": dot_benchmark, "gemv": gemv_benchmark, "trsv": trsv_benchmark}
-    dotops.launches = gemvops.launches = drawops.launches = 0
+    dotops.launches = gemvops.launches = gemvops.staged_launches = drawops.launches = 0
     trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
     t_phase = time.perf_counter()
     for driver, mode, argv in DRIVER_RUNS:
@@ -1925,6 +2034,7 @@ def phase_drivers() -> None:
                 if not ok:
                     bad.append(f"{driver} {mode} {col} at {size}: {cell} ({what})")
     launches = {"dot": dotops.launches, "gemv": gemvops.launches,
+                "gemv_staged": gemvops.staged_launches,
                 "trsv_leaf_diag": trsvops.leaf_diag_launches,
                 "trsv_sweep": trsvops.sweep_launches, "devgen_draw": drawops.launches}
     log(f"drivers launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s")
@@ -2640,11 +2750,11 @@ def main() -> int:
     kernels += _run("trsv main path", phase_main_trsv)
     kernels.append(_run("draws", phase_draws))
     kernels += _run("generic", phase_generic)
-    col_sums, probe_rows = _run("f8 probe", phase_f8_probe)
+    f8_records, probe_rows = _run("f8 probe", phase_f8_probe)
     for k in kernels:  # the probes' counterparts beside their kernels' records
         if k["name"] in probe_rows:
             k["probe_rows"] = probe_rows[k["name"]]
-    kernels.append(col_sums)
+    kernels += f8_records
     _run("drivers", phase_drivers)
     _run("trsm routes", phase_trsm_routes)
     _run("solvers", phase_solvers)

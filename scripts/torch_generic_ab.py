@@ -30,12 +30,15 @@ by design). Every kernel's reads past L1: through the non-coherent path
 ``--sass`` compiles ``dot.cu``, ``gemv.cu`` and ``trsv.cu`` of each tree
 once more, each alone, with the tree's own nvcc flags, into a temporary
 file, and prints one JSON line a tree and source: the seconds nvcc took,
-ptxas' registers and spill bytes of ``dot_reduce``, ``gemv_rows`` and
-``trsv_sweep`` (the range over their instantiations), and, from
-``cuobjdump -sass``, their global load and store instructions counted by
-opcode with its modifiers (``LDG.E.128``, ``.CONSTANT``, ``.EF``, ``STG.E``,
-...), summed over the instantiations; then, for each other tree, the
-instantiations whose counts differ from this tree's.
+ptxas' registers and spill bytes of ``dot_reduce``, ``gemv_rows`` (and
+``gemv_staged``, where the tree has it) and ``trsv_sweep`` (the range over
+their instantiations), and, from ``cuobjdump -sass``, their global load
+and store instructions counted by opcode with its modifiers
+(``LDG.E.128``, ``.CONSTANT``, ``.EF``, ``STG.E``, ...), summed over the
+instantiations; then a line of the conversion instructions (``F2FP``,
+``F2F``, ``HADD2.F32``, ``I2F``, ``F2I`` by opcode) of the GEMV's
+instantiations over f8e4m3 A and x in the f32 tier; then, for each other
+tree, the instantiations whose counts differ from this tree's.
 
 All libraries are built first: this tree's, then the others at once, a
 variant reusing this tree's library where its sources are the same (a
@@ -52,8 +55,10 @@ tiers and df64 fast and precise at 2^27; Acc<f32,f8e4m3> and the bf16
 tier over f8e4m3 at 2^27; Acc<f32,f32> and Acc<f32,bf16> at 2^27 one
 element off alignment); the GEMV's (Acc<f32,bf16> at 16384^2 and
 the flagship 1024 x 2048; fixed f32, df64 fast and df64 precise at 16384^2;
-Acc<f32,f8e4m3> at 24576^2 with f32 x and with f8 x; Acc<f32,bf16> and
-fixed f32 at 16384^2 one element off); the TRSV sweep's at n = 16384 on a
+Acc<f32,f8e4m3> at 24576^2 with f32 x and with f8 x, and with f8 x one
+element off, with e5m2 x, and in the bf16, df64 fast and df64 precise
+tiers; Acc<f32,bf16> and fixed f32 at 16384^2 one element off); the TRSV
+sweep's at n = 16384 on a
 unit upper uniform(-1, 1) / n triangle (the kernel alone: f32, df64, TRSM
 k = 8, and f32 one element off; and the whole trsv call), each main-path
 row with its kernel's device ms beside ("<row> device": the mean of its
@@ -358,7 +363,11 @@ def dot_host_split(dotops, build, call) -> dict:
 
 
 # the main path's kernels, by their source
-MAIN_KERNELS = {"dot": "dot_reduce", "gemv": "gemv_rows", "trsv": "trsv_sweep"}
+MAIN_KERNELS = {"dot": ("dot_reduce",), "gemv": ("gemv_rows", "gemv_staged"),
+                "trsv": ("trsv_sweep",)}
+GEMV_KERNELS = MAIN_KERNELS["gemv"]
+# SASS conversion opcodes (by the opcode's base), and f16 -> f32 on the FMA pipe
+_CONVERSIONS = ("F2FP", "F2F", "I2F", "F2I", "I2FP", "F2IP")
 
 
 def _cuobjdump() -> str:
@@ -382,12 +391,17 @@ def _is_global_access(op: str) -> bool:
     return base in ("LDG", "STG", "LD", "ST", "ATOMG", "ATOM", "RED", "REDG")
 
 
-def sass_counts(lib: str, kernel: str) -> dict:
-    """{instantiation: {opcode with modifiers: count}} of `kernel`'s global
-    loads and stores in the library's SASS, with the number of its
-    instructions ("sass_ops") and a hash of their opcode sequence, operands
-    left out ("sass_hash": equal where the code differs at most in its
-    registers and addresses)."""
+def _is_conversion(op: str) -> bool:
+    return op.split(".")[0] in _CONVERSIONS or op == "HADD2.F32"
+
+
+def sass_counts(lib: str, kernels) -> dict:
+    """{instantiation: {opcode with modifiers: count}} of the global loads
+    and stores of `kernels`' instantiations in the library's SASS, with the
+    number of its instructions ("sass_ops"), a hash of their opcode
+    sequence, operands left out ("sass_hash": equal where the code differs
+    at most in its registers and addresses), and its conversion
+    instructions by opcode ("conversions")."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     ops, name = {}, None
@@ -400,15 +414,17 @@ def sass_counts(lib: str, kernel: str) -> dict:
             ops[name].append(m.group(1))
     out = {}
     for pretty, seq in zip(_demangle(list(ops)), ops.values()):
-        if kernel in pretty:
+        if any(k in pretty for k in kernels):
             c = collections.Counter(op for op in seq if _is_global_access(op))
+            cv = collections.Counter(op for op in seq if _is_conversion(op))
             out[pretty] = {**dict(sorted(c.items())), "sass_ops": len(seq),
-                           "sass_hash": hashlib.sha256("\n".join(seq).encode()).hexdigest()[:12]}
+                           "sass_hash": hashlib.sha256("\n".join(seq).encode()).hexdigest()[:12],
+                           "conversions": dict(sorted(cv.items()))}
     return out
 
 
-def ptxas_counts(log: str, kernel: str) -> dict:
-    """{instantiation: [registers, spill bytes]} of `kernel` from ptxas -v."""
+def ptxas_counts(log: str, kernels) -> dict:
+    """{instantiation: [registers, spill bytes]} of `kernels` from ptxas -v."""
     found, name = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
@@ -419,7 +435,8 @@ def ptxas_counts(log: str, kernel: str) -> dict:
             found[name][1] = int(m.group(1)) + int(m.group(2))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             found[name][0] = int(m.group(1))
-    return {p: rs for p, rs in zip(_demangle(list(found)), found.values()) if kernel in p}
+    return {p: rs for p, rs in zip(_demangle(list(found)), found.values())
+            if any(k in p for k in kernels)}
 
 
 def static_facts(root: str) -> dict:
@@ -431,19 +448,20 @@ def static_facts(root: str) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src, kernel in MAIN_KERNELS.items():
+        for src, kernels in MAIN_KERNELS.items():
             lib = os.path.join(tmp, f"lib{src}.so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o", lib,
                    str(_build._CSRC / f"{src}.cu")]
             t0 = time.perf_counter()
             done = subprocess.run(cmd, capture_output=True, text=True, check=True)
             seconds = time.perf_counter() - t0
-            regs = ptxas_counts(done.stdout + done.stderr, kernel)
-            sass = sass_counts(lib, kernel)
+            regs = ptxas_counts(done.stdout + done.stderr, kernels)
+            sass = sass_counts(lib, kernels)
             total = collections.Counter()
             for c in sass.values():
-                total.update({k: v for k, v in c.items() if k not in ("sass_ops", "sass_hash")})
-            out[src] = {"build_s": round(seconds, 1), "kernel": kernel,
+                total.update({k: v for k, v in c.items()
+                              if k not in ("sass_ops", "sass_hash", "conversions")})
+            out[src] = {"build_s": round(seconds, 1), "kernel": ", ".join(kernels),
                         "instantiations": len(regs),
                         "registers": [min(r for r, _ in regs.values()),
                                       max(r for r, _ in regs.values())],
@@ -492,9 +510,10 @@ def child(root: str, reps: int, build_only: bool) -> None:
         words = [out.hi, out.lo] if isinstance(out, tuple) else [out]
         return b"".join(w.float().cpu().numpy().tobytes() for w in words)
 
-    def device_ms(fn, kernel: str) -> float:
-        """The mean device ms of `kernel`'s records over 10 calls
-        (torch.profiler): one record a call for the main path's kernels."""
+    def device_ms(fn, kernel) -> float:
+        """The mean device ms of the records of `kernel` (a name, or a tuple
+        of names) over 10 calls (torch.profiler): one record a call for the
+        main path's kernels."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -503,7 +522,8 @@ def child(root: str, reps: int, build_only: bool) -> None:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
-        recs = [e for e in prof.key_averages() if kernel in e.key]
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        recs = [e for e in prof.key_averages() if any(k in e.key for k in names)]
         count = sum(e.count for e in recs)
         return sum(e.self_device_time_total for e in recs) / count / 1e3 if count else None
 
@@ -569,9 +589,24 @@ def child(root: str, reps: int, build_only: bool) -> None:
     x8, r8 = x8f.to(f8), torch.zeros(n8, device=dev)
     timed("gemv Acc<f32,f8e4m3> 24576^2 f32 x",
           lambda: gemvops.acc_gemv(a8, x8f, r8, 1.0, 0.0, "f32"), "gemv_rows")
+    # f8 x: gemv_staged on a tree that has it, gemv_rows on one that does not
     timed("gemv Acc<f32,f8e4m3> 24576^2 f8 x",
-          lambda: gemvops.acc_gemv(a8, x8, r8, 1.0, 0.0, "f32"), "gemv_rows")
-    del a8, x8f, x8, r8
+          lambda: gemvops.acc_gemv(a8, x8, r8, 1.0, 0.0, "f32"), GEMV_KERNELS)
+    x5 = x8f.to(torch.float8_e5m2)
+    timed("gemv Acc<f32,f8e4m3 A, f8e5m2 x> 24576^2",
+          lambda: gemvops.acc_gemv(a8, x5, r8, 1.0, 0.0, "f32"), GEMV_KERNELS)
+    for ar, precise, name in (("bf16", False, "Acc<bf16,f8e4m3>"),
+                              ("df64", False, "Acc<df64,f8e4m3> fast"),
+                              ("df64", True, "Acc<df64,f8e4m3> precise")):
+        timed(f"gemv {name} 24576^2 f8 x",
+              lambda: gemvops.acc_gemv(a8, x8, r8, 1.0, 0.0, ar, precise=precise), GEMV_KERNELS)
+    flat = torch.empty(n8 * n8 + 1, device=dev, dtype=f8)
+    off_8 = flat[1:].view(n8, n8)
+    off_8.copy_(a8)
+    del a8
+    timed("gemv Acc<f32,f8e4m3> 24576^2 f8 x one element off",
+          lambda: gemvops.acc_gemv(off_8, x8, r8, 1.0, 0.0, "f32"), GEMV_KERNELS)
+    del flat, off_8, x8f, x8, x5, r8
     torch.cuda.empty_cache()
 
     # the TRSV sweep at 16384 on a unit upper uniform(-1, 1) / n triangle:
@@ -705,6 +740,11 @@ def main(argv=None) -> int:
                 print(json.dumps({"tree": root, "source": f"{src}.cu",
                                   **{k: v for k, v in f.items() if k != "per_instantiation"}}),
                       flush=True)
+            print(json.dumps({"tree": root, "conversions": {
+                p[p.index("gemv_"):p.index(">(") + 1]: {k: c[k] for k in ("conversions",
+                                                                          "sass_ops")}
+                for p, c in facts[root]["gemv"]["per_instantiation"].items()
+                if "<__nv_fp8_e4m3, __nv_fp8_e4m3, 0>" in p}}), flush=True)
         for root in trees:
             if root == this:
                 continue

@@ -263,9 +263,11 @@ def _gemv_check(tier, got, plain, ref, scale, out_dtype):
 
 def _run_gemv(a, x, r, tier, alpha, beta, df_out=False):
     ar, precise = _ar(tier)
-    before = tgemv.launches
+    before = (tgemv.launches, tgemv.staged_launches)
     got = tgemv.acc_gemv(a, x, r, alpha, beta, ar, precise=precise, df_out=df_out)
-    assert tgemv.launches == before + 1
+    staged = route_of(a, x, tier)
+    assert (tgemv.launches, tgemv.staged_launches) == (before[0] + (not staged),
+                                                       before[1] + staged)
     plain = tgemv._gemv_plain(a, x, r, alpha, beta, tier, df_out)
     a64, x64 = a.double(), x.double()
     ref = alpha * (a64 @ x64) + (0.0 if beta == 0 else beta * r.double())
@@ -347,6 +349,169 @@ def test_gemv_kernel_df_out(cuda, tier, m, n):
     r = devgen.gen_f32((m,), 6, "gemv_res", device=cuda)
     out = _run_gemv(a, x, r, tier, 2.0, 0.5, df_out=True)
     assert isinstance(out, tdf.DF) and out.hi.dtype == torch.float32
+
+
+# ---- gemv_staged: A and x stored in f8, x widened once a CTA into shared memory ----
+
+F8 = ("f8e4m3", "f8e5m2")
+STAGED_TIERS = ("f32", "df64_fast", "df64_precise")
+# the widest n whose staged x fits in a CTA's shared memory (csrc/gemv.cu;
+# tests/test_torch_gemv_f8x.py derives it from that file's layout)
+STAGED_MAX_N = 46480
+
+
+def staged_route(n: int, a_st: str, x_st: str, tier: str, aligned: bool = True) -> bool:
+    """The kernel csrc/gemv.cu's C entry chooses, as a function of the
+    call: gemv_staged (True) for A and x both stored in f8, in the f32 and
+    df64 tiers, on the vector steps (A and x 16-byte aligned, n a multiple
+    of 16), up to STAGED_MAX_N columns; gemv_rows (False) for every other
+    call. _run_gemv holds every GEMV launch of these tests to it."""
+    return (a_st in F8 and x_st in F8 and tier in STAGED_TIERS and aligned and n % 16 == 0
+            and n <= STAGED_MAX_N)
+
+
+def route_of(a, x, tier: str) -> bool:
+    """staged_route of a call on these tensors."""
+    name = {dt: st for st, dt in STORAGE.items()}
+    return staged_route(a.shape[1], name[a.dtype], name[x.dtype], tier,
+                        (a.data_ptr() | x.data_ptr()) % 16 == 0)
+
+
+def _routes(a, x, r, tier, alpha=1.5, beta=0.5, df_out=False):
+    """The staged and the per-row kernel on the same operands, each forced
+    through the wrapper's launch (_gemv_cuda), with its launch counters
+    checked."""
+    ar, precise = _ar(tier)
+    codes = tgemv._codes(a, x, r, _build.tier(ar, precise, "gemv"))
+    before = (tgemv.launches, tgemv.staged_launches)
+    outs = [tgemv._gemv_cuda(a, x, r, alpha, beta, df_out, codes, force)
+            for force in ("staged", "rows")]
+    assert (tgemv.launches, tgemv.staged_launches) == (before[0] + 1, before[1] + 1)
+    return outs
+
+
+def _same_bits(u, v) -> bool:
+    words = ((u.hi, v.hi), (u.lo, v.lo)) if isinstance(u, tdf.DF) else ((u, v),)
+    return all(torch.equal(p.view(torch.int32), q.view(torch.int32)) for p, q in words)
+
+
+# x's codes: every one (NaN reaches every row), the finite ones, and for
+# e5m2 the finite ones with its two infinities
+F8_CODES = [(st, keep) for st in F8 for keep in ("every", "finite")] + [("f8e5m2", "not NaN")]
+
+
+def _f8_codes(st, keep, cuda) -> torch.Tensor:
+    """The codes of an f8 storage that `keep` names, then the same codes in
+    reverse: each value, subnormals and -0 included, twice over; +0 codes
+    after them to a multiple of 16 (gemv_staged's vector steps)."""
+    codes = torch.arange(256, dtype=torch.uint8)
+    v = codes.view(STORAGE[st]).float()
+    codes = codes[{"every": torch.ones(256, dtype=torch.bool), "finite": torch.isfinite(v),
+                   "not NaN": ~torch.isnan(v)}[keep]]
+    codes = torch.cat([codes, codes.flip(0)])
+    codes = torch.cat([codes, codes.new_zeros(-codes.numel() % 16)])
+    return codes.view(STORAGE[st]).to(cuda)
+
+
+@pytest.mark.parametrize("xst", F8)
+@pytest.mark.parametrize("ast", F8)
+@pytest.mark.parametrize("tier", STAGED_TIERS)
+@pytest.mark.parametrize("m,n", [
+    # m past a CTA's 16 warps, and more rows a warp than one; the ragged
+    # rest of a lane's steps after the unrolled ones (3008 = 188 steps of 16)
+    (300, 4096), (5000, 1024), (37, 3008),
+])
+def test_gemv_staged_equals_per_row_bits(cuda, tier, ast, xst, m, n):
+    a = devgen.gen_f32((m, n), 11, "gemv_a", device=cuda).to(STORAGE[ast])
+    x = devgen.gen_f32((n,), 11, "gemv_x", device=cuda).to(STORAGE[xst])
+    r = devgen.gen_f32((m,), 11, "gemv_res", device=cuda)
+    assert route_of(a, x, tier)
+    staged, per_row = _routes(a, x, r, tier)
+    assert _same_bits(staged, per_row)
+    _run_gemv(a, x, r, tier, 1.5, 0.5)
+
+
+@pytest.mark.parametrize("tier", ["df64_fast", "df64_precise"])
+@pytest.mark.parametrize("xst", F8)
+def test_gemv_staged_df_out_bits(cuda, tier, xst):
+    a = devgen.gen_f32((77, 4096), 12, "gemv_a", device=cuda).to(STORAGE[xst])
+    x = devgen.gen_f32((4096,), 12, "gemv_x", device=cuda).to(STORAGE[xst])
+    r = devgen.gen_f32((77,), 12, "gemv_res", device=cuda)
+    staged, per_row = _routes(a, x, r, tier, 2.0, 0.5, df_out=True)
+    assert _same_bits(staged, per_row)
+
+
+@pytest.mark.parametrize("xst,keep", F8_CODES)
+@pytest.mark.parametrize("ast", ["f32", "bf16", "f8"])
+@pytest.mark.parametrize("tier", STAGED_TIERS)
+def test_gemv_staged_every_f8_code(cuda, tier, ast, xst, keep):
+    """x holding every code of its f8 storage, through acc_gemv: the
+    plain version's results, NaN and the signed infinities in the same
+    rows, and the finite rows within the tier's bound of it and of float64;
+    with f8 A (gemv_staged) the bits of gemv_rows too."""
+    x = _f8_codes(xst, keep, cuda)
+    n = x.shape[0]
+    ad = STORAGE[xst if ast == "f8" else ast]
+    a = devgen.gen_f32((64, n), 13, "gemv_a", device=cuda).to(ad)
+    r = devgen.gen_f32((64,), 13, "gemv_res", device=cuda)
+    ar, precise = _ar(tier)
+    before = (tgemv.launches, tgemv.staged_launches)
+    out = tgemv.acc_gemv(a, x, r, 1.5, 0.5, ar, precise=precise)
+    staged = route_of(a, x, tier)
+    assert staged == (ast == "f8")
+    assert (tgemv.launches, tgemv.staged_launches) == (before[0] + (not staged),
+                                                       before[1] + staged)
+    if staged:
+        assert _same_bits(out, _routes(a, x, r, tier)[1])
+    plain = tgemv._gemv_plain(a, x, r, 1.5, 0.5, tier, False)
+    got, want = out.double(), plain.double()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    inf = torch.isinf(got)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(got)
+    assert bool(fin.all()) if keep == "finite" else not bool(fin.all())
+    if fin.any():
+        a64, x64 = a.double(), x.double()
+        ref = 1.5 * (a64 @ x64) + 0.5 * r.double()
+        scale = 1.5 * (a64.abs() @ x64.abs()) + 0.5 * r.double().abs()
+        _gemv_check(tier, got[fin], want[fin], ref[fin], scale[fin], torch.float32)
+
+
+@pytest.mark.parametrize("xst", F8)
+def test_gemv_staged_width_edge(cuda, xst):
+    """The widest n the C entry stages, and 16 columns past it (the
+    per-row kernel), through acc_gemv."""
+    for n, staged in ((STAGED_MAX_N, True), (STAGED_MAX_N + 16, False)):
+        a = devgen.gen_f32((48, n), 14, "gemv_a", device=cuda).to(torch.float8_e4m3fn)
+        x = devgen.gen_f32((n,), 14, "gemv_x", device=cuda).to(STORAGE[xst])
+        r = devgen.gen_f32((48,), 14, "gemv_res", device=cuda)
+        assert route_of(a, x, "f32") == staged
+        _run_gemv(a, x, r, "f32", 1.5, 0.5)
+
+
+@pytest.mark.parametrize("case", ["past the edge", "bf16 A", "f32 A", "bf16 tier", "f16 tier",
+                                  "A one element off", "x one element off",
+                                  "n not a multiple of V", "f32 x"])
+def test_gemv_staged_refuses_what_it_does_not_take(cuda, case):
+    """A call the C entry sends to gemv_rows, forced onto gemv_staged (2
+    in bits 16-17 of its codes): an error, nothing launched."""
+    n = STAGED_MAX_N + 16 if case == "past the edge" else 1024
+    n -= 8 if case == "n not a multiple of V" else 0
+    a_off, x_off = int(case == "A one element off"), int(case == "x one element off")
+    ad = {"bf16 A": torch.bfloat16, "f32 A": torch.float32}.get(case, torch.float8_e4m3fn)
+    abuf = devgen.gen_f32((8 * n + 1,), 15, "gemv_a", device=cuda).to(ad)
+    xbuf = devgen.gen_f32((n + 1,), 15, "gemv_x", device=cuda)
+    xbuf = xbuf if case == "f32 x" else xbuf.to(torch.float8_e4m3fn)
+    a = abuf[a_off:a_off + 8 * n].view(8, n)
+    x = xbuf[x_off:x_off + n]
+    r = torch.zeros(8, device=cuda)
+    tier = {"bf16 tier": "bf16", "f16 tier": "f16"}.get(case, "f32")
+    assert not route_of(a, x, tier)
+    before = (tgemv.launches, tgemv.staged_launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tgemv._gemv_cuda(a, x, r, 1.0, 0.0, False, tgemv._codes(a, x, r, tier), "staged")
+    assert (tgemv.launches, tgemv.staged_launches) == before
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):

@@ -187,10 +187,11 @@ def test_block_cols_is_the_pow2_ceil_loop():
         assert tgemv._block_cols(n) == min(1024, loop_pow2_ceil(n))
 
 
-def test_cpu_tensors_never_launch_the_kernel():
-    before = tgemv.launches
-    a, x, r = (interop.from_numpy(v) for v in _data(16, 300, "bf16", 37))
+@pytest.mark.parametrize("st", ["bf16", "f8e4m3"])
+def test_cpu_tensors_never_launch_the_kernel(st):
+    before = (tgemv.launches, tgemv.staged_launches)
+    a, x, r = (interop.from_numpy(v) for v in _data(16, 300, st, 37))
     for tier in TIERS:
         ar, precise = _ar(tier)
         tgemv.acc_gemv(a, x, r, ar=ar, precise=precise)
-    assert tgemv.launches == before
+    assert (tgemv.launches, tgemv.staged_launches) == before

@@ -62,10 +62,17 @@ KERNELS = [
      ("range_t<", "stream_pack<V>", "add_steps<kSteps, XRow, YRow>", ".get(0, j)")),
     ("gemv.cu", "gemv_rows", ("A", "x", "res", "out", "out_lo"), ("range_t<",)),
     ("gemv.cu", "gemv_group", ("A", "x", "res", "out", "out_lo"), (".row(",)),
-    ("gemv.cu", "rows_sum", ("x",), ("in_row<SA> (&row)[R]", "in_row<SX> x")),
+    ("gemv.cu", "rows_sum", ("x",), ("in_row<SA> (&row)[R]", "XR x")),
     ("gemv.cu", "lane_sum", ("x",), (".from(",)),
     ("gemv.cu", "vec_steps", ("x",), ("pack<V>(", "::widen(")),
+    # the staged x's overload (its second definition), and its x reader
+    ("gemv.cu", "vec_steps#1", ("x",), ("StagedX<V>& x", "pack<V>(", "::widen_paired(",
+                                        "x.load(")),
+    ("gemv.cu", "load", ("x",), ("float (&v)[V]", "r.row(", ".template load<P>(")),
     ("gemv.cu", "store_row", ("res", "out"), ("(i, 0)",)),
+    ("gemv.cu", "gemv_staged", ("A", "x", "res", "out", "out_lo"),
+     ("range_t<", "stage_x<V, SX>(", "StagedX<V>")),
+    ("gemv.cu", "stage_x", ("x",), (".from(", "widen_paired(", "store<P>(", "xs.row(")),
     ("trsv.cu", "trsv_sweep", ("A", "bt", "out"), ("range_t<", ".row(")),
     ("trsv.cu", "load_tile", ("arow",), (".from(c0)", "load<V>(")),
 ]
@@ -77,19 +84,24 @@ def _strip_comments(src: str) -> str:
 
 def _definition(src: str, name: str) -> tuple[str, str]:
     """The parameter list and the body of function `name`'s definition: the
-    first `name(...)` followed by `{`, brace-matched."""
+    first `name(...)` followed by `{` (or `const {`), brace-matched; `name#k`, the
+    definition after k others of that name."""
+    name, _, skip = name.partition("#")
+    skip = int(skip or 0)
     for m in re.finditer(rf"\b{name}\s*\(", src):
         depth, i = 1, m.end()
         while depth:
             depth += {"(": 1, ")": -1}.get(src[i], 0)
             i += 1
-        if src[i:].lstrip().startswith("{"):
+        if re.match(r"\s*(const\s*)?\{", src[i:]):  # a member function may be const
             start = src.index("{", i)
             depth, j = 1, start + 1
             while depth:
                 depth += {"{": 1, "}": -1}.get(src[j], 0)
                 j += 1
-            return src[m.end():i - 1], src[start:j]
+            if skip == 0:
+                return src[m.end():i - 1], src[start:j]
+            skip -= 1
     raise AssertionError(f"no definition of {name}")
 
 
