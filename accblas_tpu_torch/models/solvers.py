@@ -22,6 +22,7 @@ import torch
 from ..ops import df64 as dfm
 from ..ops import dot as dotops
 from ..ops import gemv as gemvops
+from ..utils.spans import span
 
 # with tol > 0, cg reads its 0-d `live` flag on the host once per this many
 # iterations to stop early; the frozen state does not move, so the results
@@ -66,40 +67,49 @@ def cg(a, b, *, iters: int = 50, ar: str = "f32", tol: float = 0.0, matvec=None,
     and den < 0 (a breakdown: the operator is not SPD) sets |r|^2 to NaN,
     which stops the loop and tells the caller apart from convergence.
     """
-    mv = matvec if matvec is not None else (lambda p: _matvec(a, p, ar))
-    dt = dot if dot is not None else (lambda u, v: _dot(u, v, ar))
-    b32 = b.float()
-    dev = b32.device
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
-    x, r, p = torch.zeros_like(b32), b32, b32
-    rs = dt(r, r)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    # tol == 0 is a fixed budget with no residual exit at all (an rs > 0
-    # guard would stop a converged recurrence whose rs underflows to 0)
-    tol2 = -one if tol == 0.0 else torch.tensor(tol, dtype=torch.float32, device=dev) ** 2 \
-        * dt(b32, b32)
-    for i in range(iters):
+    with span("accblas.cg"):
+        mv = matvec if matvec is not None else (lambda p: _matvec(a, p, ar))
+        dt = dot if dot is not None else (lambda u, v: _dot(u, v, ar))
+        b32 = b.float()
+        dev = b32.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+        x, r, p = torch.zeros_like(b32), b32, b32
+        rs = dt(r, r)
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        # tol == 0 is a fixed budget with no residual exit at all (an rs > 0
+        # guard would stop a converged recurrence whose rs underflows to 0)
+        tol2 = -one if tol == 0.0 else torch.tensor(tol, dtype=torch.float32, device=dev) ** 2 \
+            * dt(b32, b32)
         live = (it < iters) & (rs > tol2)
-        if tol != 0.0 and i % POLL_EVERY == 0 and i and not bool(live):
-            break
-        ap = mv(p)
-        den = dt(p, ap)
-        pos = den > 0.0
-        alpha = torch.where(pos, rs / torch.where(pos, den, one), zero)
-        x_new = x + alpha * p
-        r_new = r - alpha * ap
-        rs_new = torch.where(den < 0.0, nan, dt(r_new, r_new))
-        pos = rs > 0.0
-        beta = torch.where(pos, rs_new / torch.where(pos, rs, one), zero)
-        p_new = r_new + beta * p
-        x = torch.where(live, x_new, x)
-        r = torch.where(live, r_new, r)
-        p = torch.where(live, p_new, p)
-        rs = torch.where(live, rs_new, rs)
-        it = it + live.to(torch.int32)
-    return x, rs, it
+        for i in range(iters):
+            if tol != 0.0 and i % POLL_EVERY == 0 and i:
+                with span("accblas.cg.poll"):
+                    done = not bool(live)
+                if done:
+                    break
+            # each pass ends by taking the next pass's flag, so the poll
+            # that reads it lies between passes, outside both
+            with span("accblas.cg.pass"):
+                ap = mv(p)
+                den = dt(p, ap)
+                pos = den > 0.0
+                alpha = torch.where(pos, rs / torch.where(pos, den, one), zero)
+                x_new = x + alpha * p
+                r_new = r - alpha * ap
+                rs_new = torch.where(den < 0.0, nan, dt(r_new, r_new))
+                pos = rs > 0.0
+                beta = torch.where(pos, rs_new / torch.where(pos, rs, one), zero)
+                p_new = r_new + beta * p
+                x = torch.where(live, x_new, x)
+                r = torch.where(live, r_new, r)
+                p = torch.where(live, p_new, p)
+                rs = torch.where(live, rs_new, rs)
+                it = it + live.to(torch.int32)
+                if i + 1 < iters:
+                    live = (it < iters) & (rs > tol2)
+        return x, rs, it
 
 
 def richardson_refine(a_lo, a_hi, b, *, iters: int = 5, omega: float = 1.0, ar: str = "df64"):

@@ -23,6 +23,7 @@ from pathlib import Path
 import torch
 
 from ..accessor import dtypes
+from ..utils.spans import span
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accblas_tpu_torch"
@@ -40,6 +41,9 @@ _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
 BUILD_SECONDS = "build seconds:"
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# seconds this process has spent in the loads of `load` that did work (a
+# library already loaded adds nothing)
+load_seconds = 0.0
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 # run-time codes of the kernels' template parameters (csrc/accessor.cuh)
@@ -127,11 +131,17 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu, built first if needed; the
+    seconds a load that does work takes (build and dlopen) add to
+    `load_seconds`."""
+    global load_seconds
     lib = _loaded.get(name)
     if lib is None:
-        (path,) = build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        t0 = time.perf_counter()
+        with span("accblas.load"):
+            (path,) = build(name)
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        load_seconds += time.perf_counter() - t0
     return lib
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..accessor import dtypes
 from ..accessor.range import make_range
+from ..utils.spans import span
 from . import _build
 from . import df64 as dfm
 from .common import pow2_tree_sum, route
@@ -79,19 +80,20 @@ def _dot_cuda(x: torch.Tensor, y: torch.Tensor, codes: int, init: float, df: boo
     codes. Returns (hi, lo): for a df64 tier the two elements of one fresh
     (2,) tensor, else a fresh 0-d hi and None (lo is 0)."""
     global launches
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("dot kernel needs contiguous vectors")
-    px, py = x.data_ptr(), y.data_ptr()
-    out = x.new_empty(2 if df else (), dtype=torch.float32)
-    hi = out.data_ptr()
-    fn = _build.function("dot", "accblas_dot", _ARGTYPES)
-    with _build.on_device(x):
-        stream = _build.stream(x)
-        err = fn(px, py, x.shape[0], codes | ((px | py) % 16 == 0) << 12, init,
-                 _build.scratch(x, stream), hi, hi + 4 if df else None, stream)
-    _build.check(err, "dot kernel launch")
-    launches += 1
-    return out.unbind() if df else (out, None)
+    with span("accblas.dot.launch"):
+        if not (x.is_contiguous() and y.is_contiguous()):
+            raise ValueError("dot kernel needs contiguous vectors")
+        px, py = x.data_ptr(), y.data_ptr()
+        out = x.new_empty(2 if df else (), dtype=torch.float32)
+        hi = out.data_ptr()
+        fn = _build.function("dot", "accblas_dot", _ARGTYPES)
+        with _build.on_device(x):
+            stream = _build.stream(x)
+            err = fn(px, py, x.shape[0], codes | ((px | py) % 16 == 0) << 12, init,
+                     _build.scratch(x, stream), hi, hi + 4 if df else None, stream)
+        _build.check(err, "dot kernel launch")
+        launches += 1
+        return out.unbind() if df else (out, None)
 
 
 def _dot_call(x, y, ar: str, precise: bool, init):
@@ -111,14 +113,15 @@ def _dot_call(x, y, ar: str, precise: bool, init):
 def dot(x, y, *, init=None):
     """Fixed-precision DOT: arithmetic type == storage type (f32, bf16, f16).
     Returns a 0-d tensor of the storage dtype; `init` seeds the sum."""
-    if y.dtype != x.dtype:
-        raise ValueError(
-            f"fixed-tier dot needs matching storage dtypes, got x {x.dtype} "
-            f"y {y.dtype} (use acc_dot for mixed storage)"
-        )
-    ar = dtypes.check_arithmetic(x.dtype)  # f8 storage has no fixed tier
-    hi, _ = _dot_call(x, y, ar, False, init)
-    return hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
+    with span("accblas.dot"):
+        if y.dtype != x.dtype:
+            raise ValueError(
+                f"fixed-tier dot needs matching storage dtypes, got x {x.dtype} "
+                f"y {y.dtype} (use acc_dot for mixed storage)"
+            )
+        ar = dtypes.check_arithmetic(x.dtype)  # f8 storage has no fixed tier
+        hi, _ = _dot_call(x, y, ar, False, init)
+        return hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
 
 
 def acc_dot(x, y, ar="df64", *, precise: bool = False, res_dtype=None, init=None):
@@ -131,21 +134,22 @@ def acc_dot(x, y, ar="df64", *, precise: bool = False, res_dtype=None, init=None
     df64, else a 0-d tensor of the arithmetic dtype; `res_dtype` requests a
     final cast ('f64' keeps the full df64 width).
     """
-    if ar not in _TIER_AR:  # the canonical names pass as they are
-        ar = dtypes.check_arithmetic(ar)
-    hi, lo = _dot_call(x, y, ar, precise, init)
-    if ar == "df64":
-        out = dfm.DF(hi, lo)
-        if res_dtype is None:
-            return out
-        rd = dtypes.canon(res_dtype)
-        if rd == "f64":
-            return dfm.df_to_f64(out)
-        return dfm.df_to_f32(out).to(dtypes.torch_dtype(rd))
-    out = hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
-    if res_dtype is not None:
-        out = out.to(dtypes.torch_dtype(res_dtype))
-    return out
+    with span("accblas.dot"):
+        if ar not in _TIER_AR:  # the canonical names pass as they are
+            ar = dtypes.check_arithmetic(ar)
+        hi, lo = _dot_call(x, y, ar, precise, init)
+        if ar == "df64":
+            out = dfm.DF(hi, lo)
+            if res_dtype is None:
+                return out
+            rd = dtypes.canon(res_dtype)
+            if rd == "f64":
+                return dfm.df_to_f64(out)
+            return dfm.df_to_f32(out).to(dtypes.torch_dtype(rd))
+        out = hi if ar == "f32" else hi.to(dtypes.torch_dtype(ar))
+        if res_dtype is not None:
+            out = out.to(dtypes.torch_dtype(res_dtype))
+        return out
 
 
 def xla_dot(x, y):

@@ -32,6 +32,7 @@ import torch
 
 from ..accessor import dtypes
 from ..accessor.range import make_range
+from ..utils.spans import span
 from . import _build
 from . import df64 as dfm
 from .common import pow2_ceil, pow2_tree_sum, route
@@ -127,22 +128,23 @@ def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int,
     under the kernel the entry reports. `codes`: the storage codes of A, x
     and res and the tier code, 4 bits each from the lowest (`_codes`)."""
     global launches, staged_launches
-    if not (a.is_contiguous() and x.is_contiguous() and res.is_contiguous()):
-        raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
-    m, n = a.shape
-    out = torch.empty(m, dtype=torch.float32 if df_out else res.dtype, device=a.device)
-    out_lo = torch.empty(m, dtype=torch.float32, device=a.device) if df_out else None
-    if m > 0:
-        fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
-        with _build.on_device(a):
-            err = fn(a.data_ptr(), x.data_ptr(), res.data_ptr(), out.data_ptr(),
-                     None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
-                     _block_cols(n), codes | FORCE[force] << 16, _build.stream(a), _RAN)
-        _build.check(err, "gemv kernel launch")
-        if _ran.value:
-            staged_launches += 1
-        else:
-            launches += 1
+    with span("accblas.gemv.launch"):
+        if not (a.is_contiguous() and x.is_contiguous() and res.is_contiguous()):
+            raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
+        m, n = a.shape
+        out = torch.empty(m, dtype=torch.float32 if df_out else res.dtype, device=a.device)
+        out_lo = torch.empty(m, dtype=torch.float32, device=a.device) if df_out else None
+        if m > 0:
+            fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
+            with _build.on_device(a):
+                err = fn(a.data_ptr(), x.data_ptr(), res.data_ptr(), out.data_ptr(),
+                         None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
+                         _block_cols(n), codes | FORCE[force] << 16, _build.stream(a), _RAN)
+            _build.check(err, "gemv kernel launch")
+            if _ran.value:
+                staged_launches += 1
+            else:
+                launches += 1
     return dfm.DF(out, out_lo) if df_out else out
 
 
@@ -174,13 +176,14 @@ def _gemv_call(a, x, res, alpha, beta, ar: str, precise: bool, df_out: bool = Fa
 
 def gemv(a, x, res, alpha=1.0, beta=1.0):
     """Fixed-precision GEMV: arithmetic == storage dtype (f32, bf16, f16)."""
-    if x.dtype != a.dtype:
-        raise ValueError(
-            f"fixed-tier gemv needs matching storage dtypes, got A {a.dtype} "
-            f"x {x.dtype} (use acc_gemv for mixed storage)"
-        )
-    ar = dtypes.check_arithmetic(a.dtype)  # f8 storage has no fixed tier
-    return _gemv_call(a, x, res, alpha, beta, ar, precise=False)
+    with span("accblas.gemv"):
+        if x.dtype != a.dtype:
+            raise ValueError(
+                f"fixed-tier gemv needs matching storage dtypes, got A {a.dtype} "
+                f"x {x.dtype} (use acc_gemv for mixed storage)"
+            )
+        ar = dtypes.check_arithmetic(a.dtype)  # f8 storage has no fixed tier
+        return _gemv_call(a, x, res, alpha, beta, ar, precise=False)
 
 
 def acc_gemv(a, x, res, alpha=1.0, beta=1.0, ar="df64", *, precise=False, df_out=False):
@@ -189,8 +192,9 @@ def acc_gemv(a, x, res, alpha=1.0, beta=1.0, ar="df64", *, precise=False, df_out
 
     `df_out=True` (df64 only) returns the unrounded result as a `DF` pair of
     float32 tensors instead of casting to the storage of `res`."""
-    ar = dtypes.check_arithmetic(ar)
-    return _gemv_call(a, x, res, alpha, beta, ar, precise=precise, df_out=df_out)
+    with span("accblas.gemv"):
+        ar = dtypes.check_arithmetic(ar)
+        return _gemv_call(a, x, res, alpha, beta, ar, precise=precise, df_out=df_out)
 
 
 def xla_gemv(a, x, res, alpha=1.0, beta=1.0):

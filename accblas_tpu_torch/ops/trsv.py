@@ -55,6 +55,7 @@ import torch
 
 from ..accessor import dtypes
 from ..accessor.range import make_range
+from ..utils.spans import span
 from . import _build
 from . import df64 as dfm
 from .common import route, tri_mask
@@ -515,8 +516,16 @@ def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str 
         return small(a, b, uplo, unit, st_out)
     lower = uplo == "lower"
     nb = -(-n // BLOCK)
-    inv = _leaf_inverses(_extract_leaf_diag(a, nb * BLOCK // LEAF, lower, unit), lower)
-    return _trsv_sweep(a, inv, _rhs_panels(b, nb), lower, ar, out_dtype)
+    # a span for each phase here, not in the helpers: the composition above
+    # inverts its blocks by _leaf_inverses too, under the public call's span
+    with span("accblas.trsv.leaf_gather"):
+        d = _extract_leaf_diag(a, nb * BLOCK // LEAF, lower, unit)
+    with span("accblas.trsv.leaf_inverse"):
+        inv = _leaf_inverses(d, lower)
+    with span("accblas.trsv.panels"):
+        bt = _rhs_panels(b, nb)
+    with span("accblas.trsv.sweep"):
+        return _trsv_sweep(a, inv, bt, lower, ar, out_dtype)
 
 
 def _trsv_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str = "f32"):
@@ -559,8 +568,9 @@ def trsv(a, b, uplo: str = "upper", unit: bool = True, *, resident=None,
     A holds a full (e.g. LU-packed) matrix; only the selected triangle is
     read. `resident=True` takes the blocked composition, False the sweep,
     None the route ``_route`` picks. bf16 storage beyond n=1024 warns."""
-    _check_bf16_envelope(a, a.shape[0], "f32", unstable_ok, "trsv")
-    return _trsv_impl(a, b, uplo, unit, dtypes.canon(b.dtype), resident=resident)
+    with span("accblas.trsv"):
+        _check_bf16_envelope(a, a.shape[0], "f32", unstable_ok, "trsv")
+        return _trsv_impl(a, b, uplo, unit, dtypes.canon(b.dtype), resident=resident)
 
 
 def acc_trsv(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
@@ -569,24 +579,26 @@ def acc_trsv(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
     per `ar`. 'f32' solves in f32 and casts to b's storage; 'df64' carries x
     and the corrections as (hi, lo) pairs through the one-pass sweep.
     bf16 storage beyond n=1024 warns unless `unstable_ok`."""
-    ar = dtypes.check_arithmetic(ar)
-    st_out = dtypes.canon(b.dtype)
-    _check_bf16_envelope(a, a.shape[0], ar, unstable_ok, "acc_trsv")
-    if ar == "f32":
-        x0 = _trsv_impl(a, b, uplo, unit, "f32", resident=resident)
-        return x0.to(dtypes.torch_dtype(st_out))
-    if ar != "df64":
-        raise NotImplementedError(f"acc_trsv arithmetic {ar!r}")
-    _df64_resident(resident, "acc_trsv")
-    return _trsv_impl(a, b, uplo, unit, st_out, resident=False, ar="df64")
+    with span("accblas.trsv"):
+        ar = dtypes.check_arithmetic(ar)
+        st_out = dtypes.canon(b.dtype)
+        _check_bf16_envelope(a, a.shape[0], ar, unstable_ok, "acc_trsv")
+        if ar == "f32":
+            x0 = _trsv_impl(a, b, uplo, unit, "f32", resident=resident)
+            return x0.to(dtypes.torch_dtype(st_out))
+        if ar != "df64":
+            raise NotImplementedError(f"acc_trsv arithmetic {ar!r}")
+        _df64_resident(resident, "acc_trsv")
+        return _trsv_impl(a, b, uplo, unit, st_out, resident=False, ar="df64")
 
 
 def trsm(a, b, uplo: str = "upper", unit: bool = True, *, resident=None,
          unstable_ok: bool = False):
     """Fixed-precision multi-RHS triangular solve: T X = B, B of shape
     (n, k), the same sweep with k right-hand sides."""
-    _check_bf16_envelope(a, a.shape[0], "f32", unstable_ok, "trsm")
-    return _trsm_impl(a, b, uplo, unit, dtypes.canon(b.dtype), resident=resident)
+    with span("accblas.trsv"):
+        _check_bf16_envelope(a, a.shape[0], "f32", unstable_ok, "trsm")
+        return _trsm_impl(a, b, uplo, unit, dtypes.canon(b.dtype), resident=resident)
 
 
 def acc_trsm(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
@@ -595,16 +607,17 @@ def acc_trsm(a, b, uplo: str = "upper", unit: bool = True, ar: str = "f32", *,
     per `ar` ('f32' or 'df64'), as acc_trsv. In df64, wide panels may take
     the DF composition (``_trsm_small_df64``, see ``_route``);
     resident=False forces the sweep and resident=True raises."""
-    ar = dtypes.check_arithmetic(ar)
-    st_out = dtypes.canon(b.dtype)
-    _check_bf16_envelope(a, a.shape[0], ar, unstable_ok, "acc_trsm")
-    if ar == "f32":
-        x0 = _trsm_impl(a, b, uplo, unit, "f32", resident=resident)
-        return x0.to(dtypes.torch_dtype(st_out))
-    if ar != "df64":
-        raise NotImplementedError(f"acc_trsm arithmetic {ar!r}")
-    _df64_resident(resident, "acc_trsm")
-    return _trsm_impl(a, b, uplo, unit, st_out, resident=resident, ar="df64")
+    with span("accblas.trsv"):
+        ar = dtypes.check_arithmetic(ar)
+        st_out = dtypes.canon(b.dtype)
+        _check_bf16_envelope(a, a.shape[0], ar, unstable_ok, "acc_trsm")
+        if ar == "f32":
+            x0 = _trsm_impl(a, b, uplo, unit, "f32", resident=resident)
+            return x0.to(dtypes.torch_dtype(st_out))
+        if ar != "df64":
+            raise NotImplementedError(f"acc_trsm arithmetic {ar!r}")
+        _df64_resident(resident, "acc_trsm")
+        return _trsm_impl(a, b, uplo, unit, st_out, resident=resident, ar="df64")
 
 
 def xla_trsm(a, b, uplo: str = "upper", unit: bool = True):

@@ -545,6 +545,59 @@ def test_flagship_slice_on_cuda(cuda):
     assert abs(float(d) - ref) / ref <= tolerance.TOL["f32"]
 
 
+# the kernel each launch span launches, by a part of its name
+_LAUNCHED = {"accblas.dot.launch": "dot_reduce", "accblas.gemv.launch": "gemv_rows",
+             "accblas.trsv.leaf_gather": "leaf_diag", "accblas.trsv.sweep": "trsv_sweep"}
+
+
+def _profiled_calls(a, x, calls: int):
+    """(host, device) events, (start, end, name) each, of a profile around
+    `calls` rounds of acc_dot, acc_gemv and trsv on a card."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            accblas_tpu_torch.acc_dot(x, x, ar="f32")
+            accblas_tpu_torch.acc_gemv(a, x, x, ar="f32")
+            accblas_tpu_torch.trsv(a, x)
+        torch.cuda.synchronize()
+    host, device = [], []
+    for e in prof.profiler.kineto_results.events():
+        rec = (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+        (host if e.device_type().name == "CPU" else device).append(rec)
+    return sorted(host), sorted(device)
+
+
+def test_launch_spans_on_the_device_trace_clock(cuda):
+    """On a card each public call's span holds its launch span (the TRSV's
+    its four phases), no span is copied onto the device's timeline, and
+    each kernel starts after the start of the span that launched it, one
+    kernel a span, in order: the spans share the device trace's clock."""
+    n, calls = 1024, 3
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.rand(n, n, device=cuda, generator=g) / n
+    x = torch.rand(n, device=cuda, generator=g)
+    _profiled_calls(a, x, 1)  # loads the libraries, starts the tracer
+    for _ in range(3):  # the profiler drops a device record now and then
+        host, device = _profiled_calls(a, x, calls)
+        if all(sum(k in d[2] for d in device) == calls for k in _LAUNCHED.values()):
+            break
+    spans = [h for h in host if h[2].startswith("accblas.")]
+    assert not [d for d in device if d[2].startswith("accblas.")]
+    for top, kids in (("accblas.dot", ["accblas.dot.launch"]),
+                      ("accblas.gemv", ["accblas.gemv.launch"]),
+                      ("accblas.trsv", ["accblas.trsv.leaf_gather", "accblas.trsv.leaf_inverse",
+                                        "accblas.trsv.panels", "accblas.trsv.sweep"])):
+        tops = [s for s in spans if s[2] == top]
+        assert len(tops) == calls
+        for c in tops:
+            assert [s[2] for s in spans if s[2] in kids and c[0] <= s[0] and s[1] <= c[1]] == kids
+    for span_name, kernel in _LAUNCHED.items():
+        starts = [s[0] for s in spans if s[2] == span_name]
+        recs = [d for d in device if kernel in d[2]]
+        assert len(recs) == len(starts) == calls, (span_name, len(recs))
+        assert all(k[0] > s0 for k, s0 in zip(recs, starts)), span_name
+
+
 # ---- TRSV/TRSM: the leaf gather and the sweep ----
 
 def _packed_lu(n, seed, device):
