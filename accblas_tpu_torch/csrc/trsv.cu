@@ -8,8 +8,10 @@
 //     dead triangle is zero, the diagonal is one where `unit`, and lanes
 //     past n continue as the identity. It moves n * kLeaf elements each
 //     way, a few microseconds; one CTA per tile with row-contiguous 16-byte
-//     loads where A is aligned. The batched inversion of the masked tiles
-//     stays with cuBLAS (ops/trsv.py `_leaf_inverses`).
+//     loads where A is aligned (`gather_leaf`, through range.cuh).
+//     `leaf_phase` is phase 1 of a solve in one launch: the same gather
+//     into shared memory, the tile inverted there, and the right-hand sides
+//     laid out as the sweep reads them (below).
 //   `_trsv_kernel` (:244) -> `trsv_sweep`: the whole sweep in one launch.
 //
 // The TPU kernel walks the live triangle on a sequential grid and carries
@@ -73,7 +75,34 @@
 // The published x is not an operand: it is the sweep's cross-CTA protocol
 // (__stcg stores, load_cg reads through L2), which the JAX kernel keeps in
 // VMEM scratch; an accessor read would allocate L1 lines, which are not
-// coherent across CTAs within a launch. The leaf gather reads A as before.
+// coherent across CTAs within a launch.
+//
+// Phase 1, `leaf_phase`: one CTA per kLeaf-row leaf, m = npad / kLeaf of
+// them. The CTA gathers its masked tile into shared memory (gather_leaf, the
+// same code and bits as leaf_diag), upper tiles stored reversed (row and
+// column kLeaf-1-i), so that every tile is lower triangular there, with the
+// reciprocals of its diagonal beside it. Threads 0..kLeaf-1 then each solve
+// one column c of the inverse in f32 registers against the identity column
+// e_c, by forward substitution by rows (invert_column: fma sums in four
+// chains, times the diagonal's reciprocal, not a division, which would sit
+// on the chain of every row: column substitution dividing at each step took
+// 20 us at n = 16384 on an H100, this 9.6); entries above the diagonal are
+// written as exact zeros. The other threads meanwhile write the CTA's kLeaf
+// columns of the (k, npad) f32 panels from b (any storage and strides, read
+// through a coded range), zero past n: the cast is exact, so the panels
+// have the bits of the plain version. The columns go through shared memory, then out coalesced,
+// column-major per leaf (strides (kLeaf^2, 1, kLeaf)), the layout the sweep
+// reads. A leaf past n is the identity, and lanes past n continue as the
+// identity exactly: the masked tile is block diagonal there. The arithmetic
+// is f32, as cuBLAS's batched triangular solve against the identity, which
+// it replaces (ops/trsv.py `_leaf_inverses`, still the plain version's); the
+// order of operations differs, so the inverses differ from cuBLAS's in the
+// last bits: the card tests hold them within 1e-5 of each leaf's largest
+// entry (tests/test_torch_cuda.py LEAF_INV_TOL); on an H100 they read at
+// most 9.3e-9 on diagonally dominant operands in every storage, 2.2e-11 on
+// the benchmark's unit upper operand at n = 16384. There the kernel takes
+// 9.6 us against 53 us for leaf_diag, cuBLAS's solve and the panel ops it
+// replaces (PERF.md).
 
 #include <cstdio>
 
@@ -157,18 +186,19 @@ __device__ __forceinline__ val_t<DF64> row_fold(val_t<DF64> v) {
   return v;
 }
 
-// ---- the leaf gather ----
+// ---- phase 1: the leaf gather, and the leaf phase ----
 
-// tile blockIdx.x of d: A[base + i, base + j] as f32 on the live triangle
-// inside n, one on the diagonal where `unit` or past n, zero elsewhere
-template <class SA>
-__global__ void __launch_bounds__(kThreads)
-    leaf_diag(const SA* __restrict__ A, int64_t n, float* __restrict__ d, int lower, int unit,
-              int vec_ok) {
+// The masked gather of the leaf tile at rows and columns base..base+kLeaf-1
+// by a CTA of kThreads threads: A[base + i, base + j] as f32 on the live
+// triangle inside n, one on the diagonal where `unit` or past n, zero
+// elsewhere. Each step takes V = 16 bytes of SA of one row (one aligned read
+// where vec_ok) and hands them to put(i, j0, v), columns j0..j0+V-1.
+template <class SA, class Put>
+__device__ __forceinline__ void gather_leaf(const range_t<float, const SA>& ra, int64_t n,
+                                            int64_t base, int lower, int unit, int vec_ok,
+                                            Put&& put) {
   constexpr int V = 16 / sizeof(SA);
   constexpr int VR = kLeaf / V;  // vectors per tile row
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLeaf;
-  float* tile = d + static_cast<int64_t>(blockIdx.x) * kLeaf * kLeaf;
   for (int e = threadIdx.x; e < kLeaf * VR; e += kThreads) {
     const int i = e / VR, j0 = (e % VR) * V;
     const int64_t row = base + i, col = base + j0;
@@ -176,14 +206,14 @@ __global__ void __launch_bounds__(kThreads)
     const bool live = row < n && col < n && (lower ? j0 <= i : j0 + V - 1 >= i);
     float v[V];
     if (live && vec_ok) {
-      const Pack<SA, V> pk = load_pack<SA, V>(A + row * n + col);
+      ra.row(row).from(col).template load<V>(0, v);
+    } else if (live) {
+      const row_t<float, const SA> tr = ra.row(row).from(col);
 #pragma unroll
-      for (int u = 0; u < V; ++u) v[u] = load_f32(pk.v[u]);
+      for (int u = 0; u < V; ++u) v[u] = col + u < n ? static_cast<float>(tr(u)) : 0.f;
     } else {
 #pragma unroll
-      for (int u = 0; u < V; ++u) {
-        v[u] = live && col + u < n ? load_f32(A[row * n + col + u]) : 0.f;
-      }
+      for (int u = 0; u < V; ++u) v[u] = 0.f;
     }
 #pragma unroll
     for (int u = 0; u < V; ++u) {
@@ -192,11 +222,116 @@ __global__ void __launch_bounds__(kThreads)
       v[u] = keep ? v[u] : 0.f;
       if (i == j && (unit || row >= n)) v[u] = 1.f;
     }
+    put(i, j0, v);
+  }
+}
+
+// tile blockIdx.x of d, gathered and masked (gather_leaf)
+template <class SA>
+__global__ void __launch_bounds__(kThreads)
+    leaf_diag(const SA* __restrict__ A, int64_t n, float* __restrict__ d, int lower, int unit,
+              int vec_ok) {
+  const range_t<float, const SA> ra(A, n, n, n);
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLeaf;
+  float* tile = d + static_cast<int64_t>(blockIdx.x) * kLeaf * kLeaf;
+  gather_leaf<SA>(ra, n, base, lower, unit, vec_ok, [&](int i, int j0, const auto& v) {
+    constexpr int V = std::extent_v<std::remove_reference_t<decltype(v)>>;
 #pragma unroll
     for (int u = 0; u < V; u += 4) {
       *reinterpret_cast<float4*>(tile + i * kLeaf + j0 + u) =
           make_float4(v[u], v[u + 1], v[u + 2], v[u + 3]);
     }
+  });
+}
+
+// Column c of the inverse of the lower triangular tile s (row-major in
+// shared memory), into x, given r[i] = 1 / s_ii: by rows, x_i = (e_c[i] -
+// sum_{j<i} s_ij x_j) * r[i], the sum taken in four fma chains (j mod 4)
+// added as (0 + 1) + (2 + 3). The chains keep four products in flight, and
+// row i's sum runs ahead of x_{i-1}; row i of s is read four values at a
+// time, the same address in every thread (a broadcast).
+__device__ __forceinline__ void invert_column(const float (&s)[kLeaf][kLeaf],
+                                              const float (&r)[kLeaf], int c,
+                                              float (&x)[kLeaf]) {
+#pragma unroll
+  for (int i = 0; i < kLeaf; ++i) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j0 = 0; j0 < i; j0 += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(&s[i][j0]);
+      const float ts[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j0 + u < i) acc[u] = __fmaf_rn(ts[u], x[j0 + u], acc[u]);
+      }
+    }
+    const float sum = __fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[2], acc[3]));
+    x[i] = __fmul_rn(__fsub_rn(i == c ? 1.f : 0.f, sum), r[i]);
+  }
+}
+
+// Phase 1 for leaf blockIdx.x (the note at the top): its masked tile
+// inverted into inv (m leaves, column-major per leaf), and its kLeaf columns
+// of the (k, npad) panels bt from b, element (i, q) at b[i * bs0 + q * bs1]
+// in storage b_st.
+template <class SA>
+__global__ void __launch_bounds__(kThreads)
+    leaf_phase(const SA* __restrict__ A, int64_t n, const void* __restrict__ b, int b_st,
+               int64_t bs0, int64_t bs1, int64_t k, float* __restrict__ inv,
+               float* __restrict__ bt, int64_t npad, int lower, int unit, int vec_ok) {
+  __shared__ __align__(16) float s[kLeaf][kLeaf];  // the tile, lower triangular
+  __shared__ float r[kLeaf];                       // 1 / its diagonal
+  __shared__ float xo[kLeaf][kLeaf + 1];           // the inverse's columns
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLeaf;
+  const range_t<float, const SA> ra(A, n, n, n);
+  gather_leaf<SA>(ra, n, base, lower, unit, vec_ok, [&](int i, int j0, const auto& v) {
+    constexpr int V = std::extent_v<std::remove_reference_t<decltype(v)>>;
+    const int li = lower ? i : kLeaf - 1 - i;  // the row in s
+#pragma unroll
+    for (int u = 0; u < V; u += 4) {
+      if (lower) {
+        *reinterpret_cast<float4*>(&s[li][j0 + u]) = make_float4(v[u], v[u + 1], v[u + 2],
+                                                                 v[u + 3]);
+      } else {  // reversed: T[i][j] is s[kLeaf-1-i][kLeaf-1-j]
+        *reinterpret_cast<float4*>(&s[li][kLeaf - 4 - j0 - u]) =
+            make_float4(v[u + 3], v[u + 2], v[u + 1], v[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      if (j0 + u == i) r[li] = __frcp_rn(v[u]);
+    }
+  });
+  __syncthreads();
+  if (threadIdx.x < kLeaf) {
+    const int c = threadIdx.x;
+    float x[kLeaf];
+    invert_column(s, r, c, x);
+    // x_i is entry (i, c) of inv(s): entry (i, c) of the tile's inverse, or
+    // (kLeaf-1-i, kLeaf-1-c) for an upper tile; exact zeros above the
+    // diagonal
+#pragma unroll
+    for (int i = 0; i < kLeaf; ++i) {
+      const float v = i >= c ? x[i] : 0.f;
+      if (lower) {
+        xo[c][i] = v;
+      } else {
+        xo[kLeaf - 1 - c][kLeaf - 1 - i] = v;
+      }
+    }
+  } else {
+    const range_t<float, const Coded> rb(b, b_st, n, k, bs0);
+    const range_t<float, float> rt(bt, k, npad, npad);
+    for (int64_t e = threadIdx.x - kLeaf; e < k * kLeaf; e += kThreads - kLeaf) {
+      const int64_t q = e / kLeaf, row = base + e % kLeaf;
+      rt(q, row) = row < n ? static_cast<float>(rb(row, q * bs1)) : 0.f;
+    }
+  }
+  __syncthreads();
+  // column c of leaf blockIdx.x is row base + c of an (m * kLeaf, kLeaf) range
+  const range_t<float, float> ri(inv, gridDim.x * static_cast<int64_t>(kLeaf), kLeaf, kLeaf);
+  for (int e = threadIdx.x; e < kLeaf * kLeaf; e += kThreads) {
+    ri(base + e / kLeaf, e % kLeaf) = xo[e / kLeaf][e % kLeaf];
   }
 }
 
@@ -459,6 +594,26 @@ extern "C" int accblas_leaf_diag(const void* A, int a_st, int64_t n, float* d, i
     using SA = typename decltype(ta)::type;
     leaf_diag<SA><<<static_cast<unsigned>(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const SA*>(A), n, d, lower, unit, vec_ok);
+    return cudaGetLastError();
+  });
+}
+
+// A: n x n row-major (storage a_st). b: (n, k) right-hand sides in storage
+// b_st, element (i, q) at b[i * bs0 + q * bs1]. buf: m * kLeaf * kLeaf
+// floats receiving the leaf inverses, column-major per leaf, then the
+// (k, npad) f32 panels, npad = m * kLeaf >= n. vec_ok: A 16-byte aligned and
+// n a multiple of the vector width. One launch of m CTAs on `stream`;
+// returns cudaGetLastError().
+extern "C" int accblas_leaf_phase(const void* A, int a_st, int64_t n, const void* b, int b_st,
+                                  int64_t bs0, int64_t bs1, int64_t k, float* buf, int64_t m,
+                                  int lower, int unit, int vec_ok, void* stream) {
+  using namespace accblas;
+  if (b_st < ST_F32 || b_st > ST_F8E5M2) return cudaErrorInvalidValue;
+  return with_storage(a_st, [&](auto ta) {
+    using SA = typename decltype(ta)::type;
+    leaf_phase<SA><<<static_cast<unsigned>(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const SA*>(A), n, b, b_st, bs0, bs1, k, buf, buf + m * kLeaf * kLeaf,
+        m * kLeaf, lower, unit, vec_ok);
     return cudaGetLastError();
   });
 }

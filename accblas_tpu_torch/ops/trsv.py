@@ -14,21 +14,26 @@ A solve takes one of two routes, as in the JAX package.
 
 **The sweep**, in two phases:
 
-1. the ``LEAF`` x ``LEAF`` diagonal tiles of A are gathered as f32 and
-   masked to the triangle, identity past n (``_extract_leaf_diag``), then
-   inverted in a batch by ``torch.linalg.solve_triangular``
-   (``_leaf_inverses``);
+1. the leaf phase (``_leaf_phase``): the ``LEAF`` x ``LEAF`` diagonal
+   tiles of A are gathered as f32 and masked to the triangle, identity past
+   n, and inverted in f32; the right-hand sides are laid out as (k, npad)
+   f32 rows, zero past n;
 2. the sweep walks the block rows in dependency order, each taking off the
    solved columns' correction and then multiplying through its diagonal
    leaves' inverses (``_trsv_sweep``).
 
 A CUDA tensor runs the hand-written kernels of ``csrc/trsv.cu`` (which
 replace the Pallas kernels ``_extract_leaf_diag.kern`` and ``_trsv_kernel``
-of ``accblas_tpu.ops.trsv``): the masked gather, and a sweep of one launch
-whose CTAs, one per ``LEAF``-row block row, order themselves by tickets. A
-CPU tensor runs ``_extract_leaf_diag_plain`` and ``_trsv_sweep_plain``, the
-same functions in plain torch ops; the plain sweep keeps the JAX kernel's
-``BLOCK``-row arithmetic. Nothing falls back from one to the other.
+of ``accblas_tpu.ops.trsv``): phase 1 is one launch of ``leaf_phase``
+(gather, inversion in shared memory and the panels), phase 2 a sweep of one
+launch whose CTAs, one per ``LEAF``-row block row, order themselves by
+tickets. A CPU tensor runs ``_leaf_phase_plain`` (the masked gather
+``_extract_leaf_diag_plain``, the batched inversion ``_leaf_inverses`` by
+``torch.linalg.solve_triangular`` and ``_rhs_panels``) and
+``_trsv_sweep_plain``, the same functions in plain torch ops; the plain
+sweep keeps the JAX kernel's ``BLOCK``-row arithmetic. Nothing falls back
+from one to the other. The standalone masked gather ``_extract_leaf_diag``
+(kernel ``leaf_diag``) is the counterpart of the JAX package's gather.
 
 **The blocked compositions** (``_trsv_small``, f32 arithmetic, and
 ``_trsm_small_df64``, the solved panels carried as (hi, lo) pairs): the
@@ -71,12 +76,16 @@ LEAF = 64
 # throughput-only there
 BF16_STABLE_N = 1024
 
-# launches of the two kernels, counted where the wrappers launch them
+# launches of the kernels, counted where the wrappers launch them
 leaf_diag_launches = 0
+leaf_phase_launches = 0
 sweep_launches = 0
 
 _LEAF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_PHASE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SWEEP_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
@@ -103,7 +112,7 @@ def ieee_f32():
 
 
 # --------------------------------------------------------------------------
-# phase 1: leaf gather and batched inversion
+# phase 1: leaf gather, inversion and the right-hand side panels
 # --------------------------------------------------------------------------
 
 def _extract_leaf_diag_plain(a: torch.Tensor, m: int, lower: bool, unit: bool) -> torch.Tensor:
@@ -153,9 +162,9 @@ def _leaf_inverses(d: torch.Tensor, lower: bool) -> torch.Tensor:
     """The inverses of a (g, s, s) stack of triangular blocks `d`, already
     masked, any s: solved against the identity by
     ``torch.linalg.solve_triangular`` in genuine f32 (``ieee_f32``). For the
-    sweep's leaves (phase 1) they are not transposed, unlike the JAX
-    package's, and stay in the layout the solve returns (column-major per
-    leaf from cuBLAS), which the sweep kernel reads as it is."""
+    sweep's leaves (the plain phase 1) they are not transposed, unlike the
+    JAX package's, and stay in the layout the solve returns (column-major
+    per leaf), the layout the ``leaf_phase`` kernel writes."""
     s = d.shape[-1]
     eye = _EYE.get((d.device, s))
     if eye is None:
@@ -177,7 +186,8 @@ def _masked_tri_inverse(d: torch.Tensor, lower: bool, unit: bool, *, n=None,
 
 def _check_inverses(inv: torch.Tensor, n: int):
     """The sweep kernel reads (m, LEAF, LEAF) leaf inverses column-major per
-    leaf, the layout of the batched solve's result, m * LEAF >= n."""
+    leaf, the layout ``leaf_phase`` writes and the batched solve returns,
+    m * LEAF >= n."""
     if inv.dim() != 3 or inv.shape[1:] != (LEAF, LEAF) or inv.stride() != (LEAF * LEAF, 1, LEAF):
         raise ValueError(f"trsv sweep: leaf inverses of shape {tuple(inv.shape)} and strides "
                          f"{inv.stride()} are not column-major (m, {LEAF}, {LEAF}) leaves")
@@ -191,6 +201,57 @@ def _rhs_panels(b2: torch.Tensor, nb: int) -> torch.Tensor:
     bt = torch.zeros(k, nb * BLOCK, dtype=torch.float32, device=b2.device)
     bt[:, :n] = b2.T.float()
     return bt
+
+
+def _leaf_phase_plain(a, b2, nb: int, lower: bool, unit: bool):
+    """Phase 1 in plain torch ops, any device: the masked leaf gather, the
+    batched inversion and the right-hand side panels, composed. Returns
+    (inv, bt): (m, LEAF, LEAF) leaf inverses, m = nb·BLOCK/LEAF, and the
+    (k, nb·BLOCK) f32 panels."""
+    d = _extract_leaf_diag_plain(a, nb * BLOCK // LEAF, lower, unit)
+    return _leaf_inverses(d, lower), _rhs_panels(b2, nb)
+
+
+def _phase_buffers(m: int, k: int, npad: int, device):
+    """One allocation for the leaf phase's results: (buf, inv, bt), inv the
+    first m·LEAF² floats as (m, LEAF, LEAF) column-major leaves (what
+    ``_check_inverses`` takes), bt the (k, npad) panels after them."""
+    buf = torch.empty(m * LEAF * LEAF + k * npad, dtype=torch.float32, device=device)
+    inv = buf.as_strided((m, LEAF, LEAF), (LEAF * LEAF, 1, LEAF))
+    return buf, inv, buf.as_strided((k, npad), (npad, 1), m * LEAF * LEAF)
+
+
+def _leaf_phase_cuda(a, b2, nb: int, lower: bool, unit: bool):
+    """Launch csrc/trsv.cu `leaf_phase` (gather, inversion and panels, one
+    CTA a leaf) on the current stream; (inv, bt) as ``_leaf_phase_plain``.
+    b2 is read in its own storage and strides; a b2 in no kernel storage
+    (f64 through ``acc_trsv(ar="f32")``) is cast to f32 first, as
+    ``_rhs_panels`` casts it."""
+    global leaf_phase_launches
+    n, k = b2.shape
+    if dtypes.canon(b2.dtype) not in _build.STORAGE_CODE:
+        b2 = b2.float()
+    sa = _build.storage_code(a, "trsv A")
+    sb = _build.storage_code(b2, "trsv b")
+    if not a.is_contiguous():
+        raise ValueError("trsv kernels need a row-major contiguous A")
+    vec_ok = a.data_ptr() % 16 == 0 and n % (16 // a.element_size()) == 0
+    m = nb * BLOCK // LEAF
+    buf, inv, bt = _phase_buffers(m, k, nb * BLOCK, a.device)
+    s0, s1 = b2.stride()
+    fn = _build.function("trsv", "accblas_leaf_phase", _PHASE_ARGTYPES)
+    with _build.on_device(a):
+        err = fn(a.data_ptr(), sa, n, b2.data_ptr(), sb, s0, s1, k, buf.data_ptr(), m,
+                 int(lower), int(unit), int(vec_ok), _build.stream(a))
+    _build.check(err, "leaf_phase kernel launch")
+    leaf_phase_launches += 1
+    return inv, bt
+
+
+def _leaf_phase(a, b2, nb: int, lower: bool, unit: bool):
+    if route("trsv leaf phase", a, b2) == "cuda":
+        return _leaf_phase_cuda(a, b2, nb, lower, unit)
+    return _leaf_phase_plain(a, b2, nb, lower, unit)
 
 
 # --------------------------------------------------------------------------
@@ -518,12 +579,8 @@ def _trsm_impl(a, b, uplo: str, unit: bool, st_out: str, resident=None, ar: str 
     nb = -(-n // BLOCK)
     # a span for each phase here, not in the helpers: the composition above
     # inverts its blocks by _leaf_inverses too, under the public call's span
-    with span("accblas.trsv.leaf_gather"):
-        d = _extract_leaf_diag(a, nb * BLOCK // LEAF, lower, unit)
     with span("accblas.trsv.leaf_inverse"):
-        inv = _leaf_inverses(d, lower)
-    with span("accblas.trsv.panels"):
-        bt = _rhs_panels(b, nb)
+        inv, bt = _leaf_phase(a, b, nb, lower, unit)
     with span("accblas.trsv.sweep"):
         return _trsv_sweep(a, inv, bt, lower, ar, out_dtype)
 

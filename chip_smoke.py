@@ -25,6 +25,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      residual, at n = 1000 (ragged) and 4096 on seeded LU factors, against
      the plain versions and a float64 solve of the stored triangle; the
      masked leaf gather bit for bit against its plain version in every mode;
+     the leaf phase (gather, inversion, panels) against its plain version;
      50 back-to-back TRSV and TRSM calls on one stream, bit for bit equal;
      and a solve whose grid holds more block rows than the card holds
      sweep CTAs at once (the occupancy is printed), against float64;
@@ -120,7 +121,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      run's (DOT at 2^27, GEMV at 24576), an f32-arithmetic column over
      narrow storage more than NARROW_TOL from it there, a draw of gen_f32 that differs in
      any bit from its numpy replay (first and last 2^20 elements of the
-     16384^2 draw), or a kernel of the path (DOT, GEMV, the leaf gather,
+     16384^2 draw), or a kernel of the path (DOT, GEMV, the leaf phase,
      the sweep, the draw, gemv_staged for the f8 column) that the drivers
      never launched;
   7. trsm routes: on the LU factor of the TRSV driver's master at n = 4096,
@@ -142,7 +143,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      this process at the main path's widths (pdot 2^29 and df64 2^27,
      pgemv 16384^2, ptrsv and ptrsm at 16384, pcg at 8192 for 120
      iterations), each op bit for bit equal to its single-card op, the
-     DOT, GEMV, leaf gather and sweep kernels launched by the sharded path,
+     DOT, GEMV, leaf phase and sweep kernels launched by the sharded path,
      and the layer's overhead a call and a pcg iteration; (b) 4 ranks
      sharing the card over gloo with host-staged collectives: the port's
      dryrun_multichip, then each op at full width on the 2 x 2 mesh held to
@@ -509,16 +510,14 @@ def _rel1(got, ref) -> float:
 
 
 def trsv_plain(a, b, uplo: str, unit: bool, ar: str, out_dtype):
-    """The whole solve through the plain versions only: leaf gather, the
-    batched inversion the kernel path uses too, and the plain sweep."""
+    """The whole solve through the plain versions only: the plain leaf
+    phase (leaf gather, cuBLAS's batched inversion, the panels) and the
+    plain sweep."""
     from accblas_tpu_torch.ops import trsv as trsvops
 
     n = a.shape[0]
     nb = -(-n // trsvops.BLOCK)
-    lower = uplo == "lower"
-    d = trsvops._extract_leaf_diag_plain(a, nb * trsvops.BLOCK // trsvops.LEAF, lower, unit)
-    inv = trsvops._leaf_inverses(d, lower)
-    bt = trsvops._rhs_panels(b.reshape(n, -1), nb)
+    inv, bt = trsvops._leaf_phase_plain(a, b.reshape(n, -1), nb, uplo == "lower", unit)
     return trsvops._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, out_dtype).reshape(b.shape)
 
 
@@ -538,6 +537,30 @@ def _trsv_case(chk: Checks, label: str, fn: str, a, b, uplo: str, unit: bool, ar
     chk.record(ok, f"{fn} {label} n={a.shape[0]} {uplo} unit={unit} ar={ar}: "
                    f"kernel_err={k_err:.3e} plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} "
                    f"bound={tol:.1e} finite={finite}")
+
+
+# the leaf phase's inverses against cuBLAS's (tests/test_torch_cuda.py
+# LEAF_INV_TOL): each leaf's entries within this share of its largest
+LEAF_INV_TOL = 1e-5
+
+
+def _leaf_phase_case(chk: Checks, a, b2, uplo: str, unit: bool) -> float:
+    """The leaf_phase kernel against the plain phase 1 on the same card:
+    the panels bit for bit, the inverses within LEAF_INV_TOL of each leaf's
+    largest entry. Returns the worst share."""
+    from accblas_tpu_torch.ops import trsv as trsvops
+
+    n = a.shape[0]
+    nb = -(-n // trsvops.BLOCK)
+    inv, bt = trsvops._leaf_phase(a, b2, nb, uplo == "lower", unit)
+    pinv, pbt = trsvops._leaf_phase_plain(a, b2, nb, uplo == "lower", unit)
+    same = torch.equal(bt.view(torch.int32), pbt.view(torch.int32))
+    share = float(((inv - pinv).abs().amax((1, 2)) / pinv.abs().amax((1, 2))).max())
+    chk.record(same and share <= LEAF_INV_TOL,
+               f"leaf phase {a.dtype} n={n} k={b2.shape[1]} {uplo} unit={unit}: panels' bits "
+               f"equal={same}, inverse vs cuBLAS {share:.3e} of the leaf's largest "
+               f"(bound {LEAF_INV_TOL:.0e})")
+    return share
 
 
 def _tri_gemv_case(chk: Checks, a, x, b, uplo: str, unit: bool):
@@ -636,6 +659,16 @@ def trsv_checks(chk: Checks, dev):
                 for lower in (False, True) for unit in (False, True))
             chk.record(same, f"masked leaf gather {st} n={n}, 4 modes: bits equal to the plain "
                              f"version={same}")
+        # the leaf phase on a diagonally dominant operand (scaled so that
+        # f8e4m3 holds it), b of 3 columns in A's storage
+        dd = devgen.gen_f32((n, n), SEED, "trsv_a", device=dev).mul_(1.0 / 64)
+        dd.diagonal().add_(1.0)
+        b3 = devgen.gen_f32((n, 3), SEED, "trsv_b", device=dev)
+        for st in (torch.float32, bf, torch.float8_e4m3fn):
+            for uplo, unit in (("upper", True), ("lower", True), ("upper", False),
+                               ("lower", False)):
+                _leaf_phase_case(chk, dd.to(st), b3.to(st), uplo, unit)
+        del dd, b3
         if n == 4096:
             _repeat_check(chk, lu, b, devgen.gen_f32((n, 3), SEED, "trsv_b", device=dev))
         x = devgen.gen_f32((n,), SEED, "gemv_x", device=dev)
@@ -881,14 +914,19 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):
     launches, fails the run. The `top` costliest records are logged.
     Returns ({name: (device ms, launches) per call}, device busy ms per
     call, device records per call: kernels, memsets and copies, of which
-    the profiler may drop a few). A trace with no device record, or none of
-    a counted kernel that launched, is taken again (up to 5 times)."""
+    the profiler may drop a few). The profiler loses the first few device
+    records of a trace, now and then every record of a kernel in three
+    short calls: a trace with no device record, or none of a counted
+    kernel that launched, is taken again with twice the calls (up to 5
+    times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(5):
+        if attempt:
+            calls *= 2
         before = {name: read() for name, read in counted.items()}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -912,7 +950,7 @@ def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):
         # record of a kernel its wrapper launched: profile again
         log(f"profile {label}: no device records"
             + (f" of {', '.join(missing)}" if busy > 0 else "")
-            + f" in the trace (attempt {attempt + 1})")
+            + f" in the trace of {calls} calls (attempt {attempt + 1})")
     if top:
         log(f"profile {label}: wall {wall:.4f} ms/call, device busy {busy:.4f} ms/call")
     for key, ms, count, _ in rows[:top]:
@@ -1109,6 +1147,7 @@ def phase_main_trsv() -> list[dict]:
     # on the card, then the solves ----
     drawops.launches = 0
     trsvops.leaf_diag_launches = 0
+    trsvops.leaf_phase_launches = 0
     trsvops.sweep_launches = 0
     trigops.launches = 0
     a, b = _bench_trsv_operand(dev)
@@ -1116,13 +1155,15 @@ def phase_main_trsv() -> list[dict]:
     xdf = acc_trsv(a, b, "upper", True, ar="df64")
     res = trigops.tri_gemv_df64(a, x32, b, "upper", True)
     torch.cuda.synchronize()
-    launches = {"trsv_leaf_diag": trsvops.leaf_diag_launches,
+    launches = {"trsv_leaf_phase": trsvops.leaf_phase_launches,
                 "trsv_sweep": trsvops.sweep_launches, "tri_gemv": trigops.launches,
                 "devgen_draw": drawops.launches}
     MAIN_DRAWS["launches"] += drawops.launches
     log(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"TRSV main path did not launch every kernel: {launches}")
+    if min(launches.values()) < 1 or trsvops.leaf_diag_launches:
+        raise AssertionError(f"TRSV main path did not launch every kernel, or launched the "
+                             f"standalone gather: {launches}, leaf_diag "
+                             f"{trsvops.leaf_diag_launches}")
 
     # ---- its results against float64 and the plain versions, on the card ----
     ref = _solve64(a, b, "upper", True)
@@ -1152,12 +1193,28 @@ def phase_main_trsv() -> list[dict]:
     if not (bool(torch.isfinite(res).all()) and max(r_err, rp_err) < 1e-6):
         raise AssertionError("main-path tri_gemv_df64 out of bounds")
     del tx, rref, rplain
+    # the standalone gather is off the main path (its count there, 0, is
+    # its record's); its own proof follows, its launch logged apart
+    launches["trsv_leaf_diag"] = trsvops.leaf_diag_launches
     m = n // trsvops.LEAF
     d_k = trsvops._extract_leaf_diag(a, m, False, True)
     d_p = trsvops._extract_leaf_diag_plain(a, m, False, True)
+    log(f"leaf_diag off the main path: {launches['trsv_leaf_diag']} launches there, "
+        f"{trsvops.leaf_diag_launches - launches['trsv_leaf_diag']} in its own proof")
     max_abs["trsv_leaf_diag"] = float((d_k - d_p).abs().max())
     if not torch.equal(d_k, d_p):
         raise AssertionError("main-path leaf gather differs from its plain version")
+    b2 = b.reshape(n, 1)
+    nb = n // trsvops.BLOCK
+    (inv_k, bt_k), (inv_p, bt_p) = (trsvops._leaf_phase(a, b2, nb, False, True),
+                                    trsvops._leaf_phase_plain(a, b2, nb, False, True))
+    max_abs["trsv_leaf_phase"] = float((inv_k - inv_p).abs().max())
+    share = float(((inv_k - inv_p).abs().amax((1, 2)) / inv_p.abs().amax((1, 2))).max())
+    log(f"main leaf phase n={n} upper unit: inverse vs cuBLAS {share:.3e} of the leaf's "
+        f"largest (bound {LEAF_INV_TOL:.0e}), max abs {max_abs['trsv_leaf_phase']:.3e}")
+    if not (torch.equal(bt_k, bt_p) and share <= LEAF_INV_TOL):
+        raise AssertionError("main-path leaf phase differs from its plain version")
+    del inv_k, bt_k, inv_p, bt_p
 
     # ---- timings: kernel, plain, plain, kernel ----
     def best(fk, fp):
@@ -1172,16 +1229,18 @@ def phase_main_trsv() -> list[dict]:
         lambda: trsv_plain(a, b, "upper", True, "df64", torch.float32))
     times["leaf_diag"] = best(lambda: trsvops._extract_leaf_diag(a, m, False, True),
                               lambda: trsvops._extract_leaf_diag_plain(a, m, False, True))
-    inv = trsvops._leaf_inverses(d_k, False)
-    bt = trsvops._rhs_panels(b.reshape(n, 1), n // trsvops.BLOCK)
+    times["leaf_phase"] = best(lambda: trsvops._leaf_phase(a, b2, nb, False, True),
+                               lambda: trsvops._leaf_phase_plain(a, b2, nb, False, True))
+    inv, bt = trsvops._leaf_phase(a, b2, nb, False, True)
     for ar in ("f32", "df64"):
         times[f"sweep_{ar}"] = best(
             lambda: trsvops._trsv_sweep(a, inv, bt, False, ar, torch.float32),
             lambda: trsvops._trsv_sweep_plain(a, inv, bt, False, ar, torch.float32))
     times["inversion"] = (benchmark_function(lambda: trsvops._leaf_inverses(d_k, False)), None)
-    times["phase1"] = (benchmark_function(
-        lambda: trsvops._leaf_inverses(trsvops._extract_leaf_diag(a, m, False, True), False)),
-        None)
+    # the library yardstick of the leaf phase: the gather kernel and
+    # cuBLAS's batched solve, the former phase 1 without its panels
+    lib_phase = benchmark_function(
+        lambda: trsvops._leaf_inverses(trsvops._extract_leaf_diag(a, m, False, True), False))
     times["tri_gemv"] = best(lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
                              lambda: trigops._tri_gemv_plain(a, x32, b, False, True))
     # the one PyTorch call computing the same function: the yardsticks only
@@ -1224,6 +1283,11 @@ def phase_main_trsv() -> list[dict]:
         # the strict upper triangle of each tile read (unit), each tile
         # written as f32
         "trsv_leaf_diag": bound(m * (leaf * (leaf - 1) // 2 + leaf**2) * 4, 0),
+        # the same tiles read, each inverse written as f32, b read and its
+        # panel written; a column c of an inverse needs (63 - j) fmas at
+        # each step j >= c
+        "trsv_leaf_phase": bound(m * (leaf * (leaf - 1) // 2 + leaf**2) * 4 + 2 * n * 4,
+                                 m * 2 * sum((leaf - 1 - j) * (j + 1) for j in range(leaf))),
         # the triangle, x, b and r; a product, a two_sum (6 ops), an add
         "tri_gemv": bound(tri * 4 + 3 * n * 4, 8 * tri),
     }
@@ -1232,20 +1296,24 @@ def phase_main_trsv() -> list[dict]:
     # where the device time of a call goes; the sweep is one launch per call
     device_ms = {}
     trsv_counted = {"trsv_sweep": lambda: trsvops.sweep_launches,
-                    "leaf_diag": lambda: trsvops.leaf_diag_launches}
+                    "leaf_phase": lambda: trsvops.leaf_phase_launches}
     for label, fn, ar in ((f"trsv f32 n={n}", lambda: trsv(a, b, "upper", True), "f32"),
                           (f"acc_trsv df64 n={n}",
                            lambda: acc_trsv(a, b, "upper", True, ar="df64"), "df64")):
         prof, *_ = profile_calls(label, fn, trsv_counted)
-        (sweep_ms, sweep_n), (gather_ms, gather_n) = prof["trsv_sweep"], prof["leaf_diag"]
-        log(f"  per call: {sweep_n:g} trsv_sweep launch(es) {sweep_ms:.4f} ms, {gather_n:g} "
-            f"leaf_diag launch(es) {gather_ms:.4f} ms")
-        if sweep_n != 1:
-            raise AssertionError(f"{label}: {sweep_n} sweep launches per call, not 1")
+        (sweep_ms, sweep_n), (phase_ms, phase_n) = prof["trsv_sweep"], prof["leaf_phase"]
+        log(f"  per call: {sweep_n:g} trsv_sweep launch(es) {sweep_ms:.4f} ms, {phase_n:g} "
+            f"leaf_phase launch(es) {phase_ms:.4f} ms")
+        if sweep_n != 1 or phase_n != 1:
+            raise AssertionError(f"{label}: {sweep_n} sweep and {phase_n} leaf phase launches "
+                                 f"per call, not 1 each")
         if ar == "f32":
-            device_ms["trsv_sweep"], device_ms["trsv_leaf_diag"] = sweep_ms, gather_ms
+            device_ms["trsv_sweep"], device_ms["trsv_leaf_phase"] = sweep_ms, phase_ms
         else:
             device_ms["trsv_sweep_df64"] = sweep_ms
+    device_ms["trsv_leaf_diag"] = profile_calls(
+        f"leaf_diag n={n}", lambda: trsvops._extract_leaf_diag(a, m, False, True),
+        {"leaf_diag": lambda: trsvops.leaf_diag_launches})[0]["leaf_diag"][0]
     device_ms["tri_gemv"] = profile_calls(
         f"tri_gemv_df64 n={n}", lambda: trigops.tri_gemv_df64(a, x32, b, "upper", True),
         {"tri_gemv": lambda: trigops.launches})[0]["tri_gemv"][0]
@@ -1257,7 +1325,13 @@ def phase_main_trsv() -> list[dict]:
         f"no kernel: {event_floor:.4f} ms")
     log(f"bounds: sweep f32 {bounds['trsv_sweep'][0]:.4f} ms ({bounds['trsv_sweep'][1]}), "
         f"sweep df64 {df_bound[0]:.4f} ms ({df_bound[1]}), leaf gather "
-        f"{bounds['trsv_leaf_diag'][0]:.4f} ms, tri_gemv {bounds['tri_gemv'][0]:.4f} ms")
+        f"{bounds['trsv_leaf_diag'][0]:.4f} ms, leaf phase {bounds['trsv_leaf_phase'][0]:.4f} "
+        f"ms ({bounds['trsv_leaf_phase'][1]}), tri_gemv {bounds['tri_gemv'][0]:.4f} ms")
+    log(f"time library leaf_diag + cuBLAS batched solve n={n}: {lib_phase:.4f} ms")
+    phase_us = host_us(lambda: trsvops._leaf_phase(a, b2, nb, False, True))
+    plain_phase_us = host_us(lambda: trsvops._leaf_phase_plain(a, b2, nb, False, True))
+    log(f"host us per call: leaf phase {phase_us:.2f}; its plain version (gather, cuBLAS "
+        f"solve, panels) {plain_phase_us:.2f}")
     gather_us = host_us(lambda: trsvops._extract_leaf_diag(a, m, False, True))
     empty_us = host_us(lambda: torch.empty(m, trsvops.LEAF, trsvops.LEAF, device=dev))
     clone_us = host_us(lambda: a.as_strided(*tiles).clone())
@@ -1275,6 +1349,10 @@ def phase_main_trsv() -> list[dict]:
     return [
         entry("trsv_leaf_diag", "accblas_tpu_torch/csrc/trsv.cu", "accblas_tpu/ops/trsv.py:119",
               *times["leaf_diag"], lib_gather),
+        # phase 1 of the sweep route; the JAX package's phase 1 is its
+        # gather and a batched XLA triangular solve
+        entry("trsv_leaf_phase", "accblas_tpu_torch/csrc/trsv.cu",
+              "accblas_tpu/ops/trsv.py:119", *times["leaf_phase"], lib_phase),
         # the fixed f32 tier of the main path; the df64 tier's times are logged
         entry("trsv_sweep", "accblas_tpu_torch/csrc/trsv.cu", "accblas_tpu/ops/trsv.py:244",
               *times["sweep_f32"], lib_solve),
@@ -1993,7 +2071,7 @@ def phase_drivers() -> None:
     bad = _check_draws(dev)
     modules = {"dot": dot_benchmark, "gemv": gemv_benchmark, "trsv": trsv_benchmark}
     dotops.launches = gemvops.launches = gemvops.staged_launches = drawops.launches = 0
-    trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
+    trsvops.leaf_phase_launches = trsvops.sweep_launches = 0
     t_phase = time.perf_counter()
     for driver, mode, argv in DRIVER_RUNS:
         out = io.StringIO()
@@ -2035,7 +2113,7 @@ def phase_drivers() -> None:
                     bad.append(f"{driver} {mode} {col} at {size}: {cell} ({what})")
     launches = {"dot": dotops.launches, "gemv": gemvops.launches,
                 "gemv_staged": gemvops.staged_launches,
-                "trsv_leaf_diag": trsvops.leaf_diag_launches,
+                "trsv_leaf_phase": trsvops.leaf_phase_launches,
                 "trsv_sweep": trsvops.sweep_launches, "devgen_draw": drawops.launches}
     log(f"drivers launches: {launches}; phase {time.perf_counter() - t_phase:.1f} s")
     bad += [f"the drivers never launched {k}" for k, v in launches.items() if v < 1]
@@ -2122,7 +2200,7 @@ def trsm_routes(dev, ns=ROUTE_NS, ks=ROUTE_KS, timed: bool = True) -> list[str]:
     bad = []
     lu64 = trsv_benchmark.lu_cached(max(N_TRSV, *ns), SEED, dev) if timed else None
     sweep_counted = {"trsv_sweep": lambda: trsvops.sweep_launches,
-                     "leaf_diag": lambda: trsvops.leaf_diag_launches}
+                     "leaf_phase": lambda: trsvops.leaf_phase_launches}
     kmax = max(ks)
     for n in ns:
         if timed:
@@ -2455,12 +2533,12 @@ def sharded_one_rank() -> list[str]:
 
             # ---- the sharded path, its launches counted ----
             dotops.launches = gemvops.launches = 0
-            trsvops.leaf_diag_launches = trsvops.sweep_launches = 0
+            trsvops.leaf_phase_launches = trsvops.sweep_launches = 0
             collectives.counts.clear()
             got = [sharded() for _, sharded, _ in pairs]
             torch.cuda.synchronize()
             launches = {"dot": dotops.launches, "gemv": gemvops.launches,
-                        "trsv_leaf_diag": trsvops.leaf_diag_launches,
+                        "trsv_leaf_phase": trsvops.leaf_phase_launches,
                         "trsv_sweep": trsvops.sweep_launches}
             log(f"sharded 1x1 nccl launches: {launches}; collectives "
                 f"{ {'/'.join(k): v for k, v in sorted(collectives.counts.items())} }")

@@ -547,7 +547,7 @@ def test_flagship_slice_on_cuda(cuda):
 
 # the kernel each launch span launches, by a part of its name
 _LAUNCHED = {"accblas.dot.launch": "dot_reduce", "accblas.gemv.launch": "gemv_rows",
-             "accblas.trsv.leaf_gather": "leaf_diag", "accblas.trsv.sweep": "trsv_sweep"}
+             "accblas.trsv.leaf_inverse": "leaf_phase", "accblas.trsv.sweep": "trsv_sweep"}
 
 
 def _profiled_calls(a, x, calls: int):
@@ -569,7 +569,7 @@ def _profiled_calls(a, x, calls: int):
 
 def test_launch_spans_on_the_device_trace_clock(cuda):
     """On a card each public call's span holds its launch span (the TRSV's
-    its four phases), no span is copied onto the device's timeline, and
+    its two phases), no span is copied onto the device's timeline, and
     each kernel starts after the start of the span that launched it, one
     kernel a span, in order: the spans share the device trace's clock."""
     n, calls = 1024, 3
@@ -585,8 +585,7 @@ def test_launch_spans_on_the_device_trace_clock(cuda):
     assert not [d for d in device if d[2].startswith("accblas.")]
     for top, kids in (("accblas.dot", ["accblas.dot.launch"]),
                       ("accblas.gemv", ["accblas.gemv.launch"]),
-                      ("accblas.trsv", ["accblas.trsv.leaf_gather", "accblas.trsv.leaf_inverse",
-                                        "accblas.trsv.panels", "accblas.trsv.sweep"])):
+                      ("accblas.trsv", ["accblas.trsv.leaf_inverse", "accblas.trsv.sweep"])):
         tops = [s for s in spans if s[2] == top]
         assert len(tops) == calls
         for c in tops:
@@ -598,7 +597,7 @@ def test_launch_spans_on_the_device_trace_clock(cuda):
         assert all(k[0] > s0 for k, s0 in zip(recs, starts)), span_name
 
 
-# ---- TRSV/TRSM: the leaf gather and the sweep ----
+# ---- TRSV/TRSM: the leaf gather, the leaf phase and the sweep ----
 
 def _packed_lu(n, seed, device):
     """The JAX tests' operand: the packed LU factor of a diagonally dominant
@@ -644,15 +643,13 @@ def _run_trsv(a, b, uplo, unit, ar, tol):
     """The public acc_trsm/acc_trsv through the kernels, against the plain
     sweep on the same inputs and against float64."""
     vec = b.dim() == 1
-    before = (ttrsv.leaf_diag_launches, ttrsv.sweep_launches)
+    before = (ttrsv.leaf_phase_launches, ttrsv.sweep_launches)
     fn = accblas_tpu_torch.acc_trsv if vec else accblas_tpu_torch.acc_trsm
     got = fn(a, b, uplo, unit, ar=ar, unstable_ok=True)
-    assert (ttrsv.leaf_diag_launches, ttrsv.sweep_launches) == (before[0] + 1, before[1] + 1)
+    assert (ttrsv.leaf_phase_launches, ttrsv.sweep_launches) == (before[0] + 1, before[1] + 1)
     n = a.shape[0]
     nb = -(-n // ttrsv.BLOCK)
-    d = ttrsv._extract_leaf_diag_plain(a, nb * ttrsv.BLOCK // ttrsv.LEAF, uplo == "lower", unit)
-    inv = ttrsv._leaf_inverses(d, uplo == "lower")
-    bt = ttrsv._rhs_panels(b.reshape(n, -1), nb)
+    inv, bt = ttrsv._leaf_phase_plain(a, b.reshape(n, -1), nb, uplo == "lower", unit)
     plain = ttrsv._trsv_sweep_plain(a, inv, bt, uplo == "lower", ar, got.dtype)
     ref = _solve64(a, b, uplo, unit)
     assert torch.isfinite(got).all()
@@ -730,6 +727,23 @@ def test_trsv_kernel_result_storage_and_repeats(cuda):
     assert accblas_tpu_torch.trsv(a, b.to(torch.bfloat16), unit=False).dtype == torch.bfloat16
 
 
+def test_trsv_f64_rhs_in_the_f32_tier(cuda):
+    """An f64 b in the f32 tier is cast to f32 once, as on the CPU route:
+    the solve is that of b cast to f32 bit for bit, returned as f64, and
+    agrees with the CPU's solve of the same inputs."""
+    a, b = _packed_lu(700, 19, cuda)
+    bm = devgen.gen_f32((700, 3), 19, "trsv_b", device=cuda)
+    for fn, rhs in ((accblas_tpu_torch.acc_trsv, b), (accblas_tpu_torch.acc_trsm, bm)):
+        before = ttrsv.leaf_phase_launches
+        got = fn(a, rhs.double(), "upper", False, ar="f32")
+        assert ttrsv.leaf_phase_launches == before + 1
+        assert got.dtype == torch.float64
+        assert torch.equal(got, fn(a, rhs, "upper", False, ar="f32").double())
+        cpu = fn(a.cpu(), rhs.double().cpu(), "upper", False, ar="f32")
+        assert cpu.dtype == torch.float64
+        assert _rel1(got.cpu(), cpu) < 2 * _trsv_tol("f32", "f32")
+
+
 def test_trsv_kernel_back_to_back_sweeps_repeat(cuda):
     """50 sweeps queued on one stream without a synchronisation: each resets
     its counters, and every result has the first one's bits."""
@@ -786,6 +800,117 @@ def test_leaf_gather_kernel_bits(cuda, st, n):
                 got = ttrsv._extract_leaf_diag(op, m, lower, unit)
                 assert ttrsv.leaf_diag_launches == before + 1
                 assert torch.equal(got, want)
+
+
+# the leaf phase's inverses against cuBLAS's batched solve (the plain
+# version): each leaf's entries within this share of its largest
+LEAF_INV_TOL = 1e-5
+_LEAF_MODES = [("upper", True), ("lower", True), ("upper", False), ("lower", False)]
+
+
+def _leaf_operand(n, st, device):
+    """Every leaf diagonally dominant (entries of 1/64 or less off the
+    diagonal, about 1 on it), so its inverse is well conditioned in every
+    storage, f8 too."""
+    a = devgen.gen_f32((n, n), 61, "trsv_a", device=device).mul_(1.0 / 64)
+    a.diagonal().add_(1.0)
+    return a.to(STORAGE[st])
+
+
+def _check_leaf_phase(a, b2, uplo, unit):
+    """The leaf_phase kernel against _leaf_phase_plain on the same card:
+    the panels bit for bit with their pad zero, the inverses within
+    LEAF_INV_TOL of each leaf's largest entry with exact zeros above (below)
+    the diagonal, and the identity past n exact. Returns the worst share."""
+    n = a.shape[0]
+    lower = uplo == "lower"
+    nb = -(-n // ttrsv.BLOCK)
+    before = ttrsv.leaf_phase_launches
+    inv, bt = ttrsv._leaf_phase(a, b2, nb, lower, unit)
+    assert ttrsv.leaf_phase_launches == before + 1
+    pinv, pbt = ttrsv._leaf_phase_plain(a, b2, nb, lower, unit)
+    assert torch.equal(bt.view(torch.int32), pbt.view(torch.int32))
+    assert not bt[:, n:].view(torch.int32).any()
+    ttrsv._check_inverses(inv, n)
+    assert torch.isfinite(inv).all()
+    tri = torch.tril(inv) if lower else torch.triu(inv)
+    assert torch.equal(inv.view(torch.int32), tri.view(torch.int32))
+    share = ((inv - pinv).abs().amax((1, 2)) / pinv.abs().amax((1, 2))).max().item()
+    assert share <= LEAF_INV_TOL, (share, n, uplo, unit)
+    eye = torch.eye(ttrsv.LEAF, device=a.device)
+    live = -(-n // ttrsv.LEAF)
+    assert torch.equal(inv[live:], eye.expand_as(inv[live:]))
+    tail = n % ttrsv.LEAF
+    if tail:
+        assert torch.equal(inv[live - 1][tail:, :], eye[tail:, :])
+        assert torch.equal(inv[live - 1][:, tail:], eye[:, tail:])
+    return share
+
+
+@pytest.mark.parametrize("st", list(STORAGE))
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 129, 700, 1000, 2600])
+def test_leaf_phase_kernel_against_plain(cuda, n, st):
+    """The one-launch phase 1 against the gather, cuBLAS's batched solve
+    and the panels composed, on A in storage `st`, for every storage of b
+    (and a strided b), upper and lower, unit and stored diagonals, k = 1,
+    3, 5, 8."""
+    a = _leaf_operand(n, st, cuda)
+    for st_b in STORAGE:
+        for k in (1, 3, 5, 8):
+            b2 = devgen.gen_f32((n, k), 67, "trsv_b", device=cuda).to(STORAGE[st_b])
+            for uplo, unit in _LEAF_MODES:
+                _check_leaf_phase(a, b2, uplo, unit)
+    bs = devgen.gen_f32((3, n), 67, "trsv_b", device=cuda).T  # strides (1, n)
+    _check_leaf_phase(a, bs, "lower", False)
+    _check_leaf_phase(a, bs[:, 1:], "upper", True)
+
+
+def test_leaf_phase_kernel_unaligned_matrix(cuda):
+    """A 4 bytes past a 16-byte boundary: the gather's element loads."""
+    a = _leaf_operand(640, "f32", cuda)
+    buf = torch.empty(640 * 640 + 1, device=cuda)
+    buf[1:] = a.reshape(-1)
+    b2 = devgen.gen_f32((640, 3), 67, "trsv_b", device=cuda)
+    for uplo, unit in _LEAF_MODES:
+        _check_leaf_phase(buf[1:].view(640, 640), b2, uplo, unit)
+
+
+def test_leaf_phase_kernel_repeats(cuda):
+    """30 leaf phases queued back to back on one stream: every result has
+    the first one's bits."""
+    a = _leaf_operand(2600, "bf16", cuda)
+    b2 = devgen.gen_f32((2600, 5), 71, "trsv_b", device=cuda)
+    nb = -(-2600 // ttrsv.BLOCK)
+    for lower in (False, True):
+        runs = [ttrsv._leaf_phase(a, b2, nb, lower, False) for _ in range(30)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0][0], inv) and torch.equal(runs[0][1], bt)
+                   for inv, bt in runs[1:])
+
+
+def test_leaf_phase_launches_follow_the_route(cuda):
+    """One leaf_phase launch a sweep-route call, none on the composition
+    route, and no cuBLAS triangular solve in a profiled sweep-route call."""
+    a, b = _packed_lu(1024, 73, cuda)
+    bm = devgen.gen_f32((1024, 8), 73, "trsv_b", device=cuda)
+    before = ttrsv.leaf_phase_launches
+    accblas_tpu_torch.trsv(a, b, "upper", False)
+    accblas_tpu_torch.acc_trsm(a, bm, "lower", True, ar="df64")
+    assert ttrsv.leaf_phase_launches == before + 2
+    accblas_tpu_torch.trsm(a, bm, "upper", False, resident=True)
+    assert ttrsv.leaf_phase_launches == before + 2
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(5):  # the profiler drops a device record now and then
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                accblas_tpu_torch.trsv(a, b, "upper", False)
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if e.self_device_time_total > 0}
+        if any("leaf_phase" in k for k in names) and any("trsv_sweep" in k for k in names):
+            break
+    assert any("leaf_phase" in k for k in names) and any("trsv_sweep" in k for k in names), names
+    assert not [k for k in names if "trsm" in k.lower()], names
 
 
 def test_trsv_kernels_reject_what_they_do_not_take(cuda):

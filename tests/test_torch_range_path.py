@@ -75,6 +75,11 @@ KERNELS = [
     ("gemv.cu", "stage_x", ("x",), (".from(", "widen_paired(", "store<P>(", "xs.row(")),
     ("trsv.cu", "trsv_sweep", ("A", "bt", "out"), ("range_t<", ".row(")),
     ("trsv.cu", "load_tile", ("arow",), (".from(c0)", "load<V>(")),
+    # phase 1: the masked gather leaf_diag and leaf_phase share, and
+    # leaf_phase's b, panels and inverses
+    ("trsv.cu", "gather_leaf", ("ra",), (".row(row).from(col)", "load<V>(")),
+    ("trsv.cu", "leaf_phase", ("A", "b", "bt", "inv"),
+     ("range_t<float, const SA>", "range_t<float, const Coded>", "gather_leaf<SA>(")),
 ]
 
 

@@ -118,8 +118,8 @@ def test_chip_smoke_refuses_without_a_card():
 
 
 def _launches():
-    return (tdot.launches, tgemv.launches, ttrsv.leaf_diag_launches, ttrsv.sweep_launches,
-            ttri.launches, tdraw.launches)
+    return (tdot.launches, tgemv.launches, ttrsv.leaf_diag_launches, ttrsv.leaf_phase_launches,
+            ttrsv.sweep_launches, ttri.launches, tdraw.launches)
 
 
 def test_plain_path_on_cpu_launches_nothing():

@@ -21,8 +21,7 @@ from accblas_tpu_torch.utils import MatrixInfo, bench, gen_mtx, spans
 
 torch.set_num_threads(1)
 
-PHASES = ["accblas.trsv.leaf_gather", "accblas.trsv.leaf_inverse", "accblas.trsv.panels",
-          "accblas.trsv.sweep"]
+PHASES = ["accblas.trsv.leaf_inverse", "accblas.trsv.sweep"]
 
 
 def _profiled(fn):

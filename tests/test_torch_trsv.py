@@ -314,6 +314,56 @@ def test_leaf_inverses_match_jax(n, uplo, unit):
         np.testing.assert_array_equal(last, np.eye(ttrsv.LEAF, dtype=np.float32))
 
 
+@pytest.mark.parametrize("st", ["f32", "bf16", "f8e5m2"])
+@pytest.mark.parametrize("n", [63, 512, 700])
+@pytest.mark.parametrize("uplo,unit", [("upper", True), ("lower", True), ("upper", False),
+                                       ("lower", False)])
+def test_leaf_phase_plain_composes_the_three(uplo, unit, n, st):
+    """Phase 1's plain version is the masked gather, the batched inversion
+    and the panels composed, bit for bit, on A and b in storage `st` (b an
+    (n, 3) strided view too); its inverses, transposed, are the JAX
+    package's within test_leaf_inverses_match_jax's normwise bound, and
+    the identity past n."""
+    lower = uplo == "lower"
+    lu, b64 = _packed_lu(n, seed=17)
+    a = interop.from_numpy(lu.astype(np.float32), st)
+    # e4m3 would hold the factor's n/4 diagonal as NaN; e5m2 holds it
+    bm = interop.from_numpy(np.stack([b64, -b64, 2 * b64]).astype(np.float32), st).T
+    nb = -(-n // ttrsv.BLOCK)
+    m = nb * ttrsv.BLOCK // ttrsv.LEAF
+    inv, bt = ttrsv._leaf_phase(a, bm, nb, lower, unit)
+    assert torch.equal(inv, ttrsv._leaf_inverses(ttrsv._extract_leaf_diag_plain(a, m, lower, unit),
+                                                 lower))
+    assert torch.equal(bt, ttrsv._rhs_panels(bm, nb))
+    assert torch.equal(bt[:, :n], bm.T.float()) and not bt[:, n:].any()
+    want = jtrsv._leaf_inverses(jnp.asarray(a.float().numpy()), nb, ttrsv.BLOCK, ttrsv.LEAF,
+                                lower, unit, True, n=n)
+    want = np.asarray(want).reshape(-1, ttrsv.LEAF, ttrsv.LEAF).transpose(0, 2, 1)
+    diff = np.linalg.norm(inv.numpy() - want, axis=(1, 2)) / np.linalg.norm(want, axis=(1, 2))
+    assert diff.max() < 1e-5, diff.max()
+    eye = np.eye(ttrsv.LEAF, dtype=np.float32)
+    for pad in inv[-(-n // ttrsv.LEAF):]:
+        np.testing.assert_array_equal(pad.numpy(), eye)
+    tail = n % ttrsv.LEAF
+    if tail:
+        last = inv[n // ttrsv.LEAF].numpy()
+        np.testing.assert_array_equal(last[tail:, :], eye[tail:, :])
+        np.testing.assert_array_equal(last[:, tail:], eye[:, tail:])
+
+
+@pytest.mark.parametrize("m,k,npad", [(8, 1, 512), (16, 5, 1024), (1, 3, 64)])
+def test_leaf_phase_buffers_are_what_the_sweep_takes(m, k, npad):
+    """The kernel route's one allocation: the inverses in the sweep's
+    column-major layout, then the contiguous panels, both views of it."""
+    buf, inv, bt = ttrsv._phase_buffers(m, k, npad, "cpu")
+    ttrsv._check_inverses(inv, m * ttrsv.LEAF)
+    assert inv.shape == (m, ttrsv.LEAF, ttrsv.LEAF) and inv.data_ptr() == buf.data_ptr()
+    assert bt.shape == (k, npad) and bt.is_contiguous()
+    assert bt.data_ptr() == buf.data_ptr() + 4 * m * ttrsv.LEAF**2
+    assert buf.numel() == m * ttrsv.LEAF**2 + k * npad
+    assert bt.data_ptr() % 16 == inv.data_ptr() % 16
+
+
 def test_sweep_reads_the_inverses_as_the_solve_returns_them():
     """The batched solve returns column-major leaves, which the kernel
     wrapper takes as they are (no copy); it refuses any other layout."""
@@ -328,11 +378,26 @@ def test_sweep_reads_the_inverses_as_the_solve_returns_them():
         ttrsv._check_inverses(inv, 129)
 
 
+@pytest.mark.parametrize("k", [None, 3])
+def test_f64_rhs_in_the_f32_tier(k):
+    """An f64 b in the f32 tier is cast to f32 once (the card's kernel
+    route does the same): the solve is that of b cast to f32, bit for bit,
+    returned as f64."""
+    lu, b64 = _packed_lu(300)
+    a = torch.from_numpy(lu.astype(np.float32))
+    b = torch.from_numpy(b64) if k is None else torch.from_numpy(
+        np.stack([b64 * (c + 1) for c in range(k)], 1))
+    fn = accblas_tpu_torch.acc_trsv if k is None else accblas_tpu_torch.acc_trsm
+    got = fn(a, b, "upper", False, ar="f32")
+    assert got.dtype == torch.float64
+    assert torch.equal(got, fn(a, b.float(), "upper", False, ar="f32").double())
+
+
 def test_cpu_tensors_never_launch_the_kernels():
-    before = (ttrsv.leaf_diag_launches, ttrsv.sweep_launches)
+    before = (ttrsv.leaf_diag_launches, ttrsv.leaf_phase_launches, ttrsv.sweep_launches)
     lu, b64 = _packed_lu(300)
     a = torch.from_numpy(lu.astype(np.float32))
     b = torch.from_numpy(b64.astype(np.float32))
     accblas_tpu_torch.trsv(a, b, unit=False)
     accblas_tpu_torch.acc_trsm(a, torch.stack([b, b], 1), ar="df64")
-    assert (ttrsv.leaf_diag_launches, ttrsv.sweep_launches) == before
+    assert (ttrsv.leaf_diag_launches, ttrsv.leaf_phase_launches, ttrsv.sweep_launches) == before

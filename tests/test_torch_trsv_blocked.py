@@ -331,9 +331,9 @@ def test_resident_routes_on_cpu():
 
 
 def test_compositions_launch_no_kernel_on_cpu():
-    before = (ttrsv.leaf_diag_launches, ttrsv.sweep_launches)
+    before = (ttrsv.leaf_diag_launches, ttrsv.leaf_phase_launches, ttrsv.sweep_launches)
     lu, b64 = _packed_lu(300)
     a, b = _t(lu.astype(np.float32)), _t(b64.astype(np.float32))
     accblas_tpu_torch.trsm(a, torch.stack([b] * 40, 1), resident=True)
     accblas_tpu_torch.acc_trsm(a, torch.stack([b] * 40, 1), ar="df64")
-    assert (ttrsv.leaf_diag_launches, ttrsv.sweep_launches) == before
+    assert (ttrsv.leaf_diag_launches, ttrsv.leaf_phase_launches, ttrsv.sweep_launches) == before
