@@ -56,6 +56,20 @@
 // to the widest x a CTA's shared memory stages (46480 columns); the C
 // entry (accblas_gemv) chooses, and sends every other call to gemv_rows.
 //
+// x given as a DF pair (gemv_rows_dfx). The residual r = b - A x of an
+// iterative refinement (models/solvers.py lu_refine) needs x to more than
+// an f32's precision: an f32 x caps the backward error near 6e-8, while
+// HPL's test asks for 16 n 2^-53. Two passes, A x_hi then A x_lo, would read
+// A twice; this kernel reads it once, with gemv_rows' rows, lanes, vector
+// steps, fold and epilogue, in the precise df64 tier: each product of a
+// with x_hi is exact (two_prod), and a * x_lo, an f32 product, joins the
+// chain's error word (DFXChains), so a row's sum carries x_lo's part to
+// about 2^-48 of the sum of |a||x|. A step loads three packs (A, x_hi,
+// x_lo), so a lane keeps kDfxLoads = 8 steps in flight. The C entry is
+// accblas_gemv_dfx. At 65536^2 on f32 A it read 5.53 ms on an H100 (700 W),
+// 3.10 TB/s over A, x's two words, b and r's two words, against 5.41 ms
+// for gemv_rows' precise tier on an f32 x (PERF.md).
+//
 // Each lane keeps its partial sums in registers, in the tier's arithmetic,
 // adding its vector steps (lane, lane + 32, ...) in column order; the warp
 // combines the lanes with a fixed shuffle tree. No atomics: the results
@@ -96,6 +110,9 @@ constexpr int kLoads = 16;  // vector loads of A a lane issues before it adds on
 // rows a warp takes, which then share each load of x (U = kLoads / kRows
 // vector steps of each row are loaded at a time)
 constexpr int kRows = 1;
+// vector steps a lane of gemv_rows_dfx loads before it adds one: each is
+// three packs (A, x_hi, x_lo), against two in gemv_rows
+constexpr int kDfxLoads = 8;
 // warps per CTA of the staged kernel, whose grid is persistent: x is
 // widened once a CTA, and at 24576 columns the staged x takes more than
 // half of an SM's shared memory, so one CTA an SM (8 warps were slower, 32
@@ -223,6 +240,71 @@ __device__ __forceinline__ void vec_steps(Acc (&acc)[R], in_row<SA> (&a)[R], Sta
   for (int r = 0; r < R; ++r) a[r] = a[r].from(K * kStride);
 }
 
+// x given as a DF pair, its hi and lo words two f32 rows (gemv_rows_dfx),
+// read as a row of x is read: from(d) moves both d columns on, (j) is the
+// DF at column j
+struct DFXRow {
+  in_row<float> hi, lo;
+  __device__ __forceinline__ DFXRow from(int64_t d) const { return {hi.from(d), lo.from(d)}; }
+  __device__ __forceinline__ DF operator()(int j) const {
+    return DF{static_cast<float>(hi(j)), static_cast<float>(lo(j))};
+  }
+};
+
+// the precise df64 tier's chains with x a DF: the exact product of a with
+// x_hi (two_prod), and the f32 product a * x_lo added to the chain's error
+// word with the product's low word and the add's rounding
+template <int V>
+struct DFXChains : DFChains<TIER_DF_PRECISE, V> {
+  __device__ __forceinline__ void add(int j, float a, DF x) {
+    float p, pe, t, e;
+    two_prod(a, x.hi, p, pe);
+    two_sum(this->s[j], p, t, e);
+    this->c[j] = __fadd_rn(this->c[j], __fadd_rn(e, __fadd_rn(pe, __fmul_rn(a, x.lo))));
+    this->s[j] = t;
+  }
+};
+
+// the K steps with x a DF pair: every load of A, x_hi and x_lo issued, then
+// the products added in column order
+template <int K, int R, int V, class SA, class SX, class Acc>
+__device__ __forceinline__ void vec_steps(Acc (&acc)[R], in_row<SA> (&a)[R], DFXRow& x) {
+  constexpr int kStride = 32 * V;
+  Pack<float, V> hp[K], lp[K];
+  Pack<SA, V> ap[K][R];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    hp[u] = x.hi.pack<V>(u * kStride);
+    lp[u] = x.lo.pack<V>(u * kStride);
+#pragma unroll
+    for (int r = 0; r < R; ++r) ap[u][r] = a[r].template pack<V>(u * kStride);
+  }
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    float h[V], l[V];
+    in_row<float>::widen(hp[u], h);
+    in_row<float>::widen(lp[u], l);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float av[V];
+      in_row<SA>::widen(ap[u][r], av);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[r].add(j, av[j], DF{h[j], l[j]});
+    }
+  }
+  x = x.from(K * kStride);
+#pragma unroll
+  for (int r = 0; r < R; ++r) a[r] = a[r].from(K * kStride);
+}
+
+// x at column j, as lane_sum's element loads read it: a float of x's row or
+// of the staged x, or a DF of x given as a pair (DFXRow)
+template <class XR>
+__device__ __forceinline__ float x_at(const XR& x, int64_t j) {
+  return x.from(j)(0);
+}
+__device__ __forceinline__ DF x_at(const DFXRow& x, int64_t j) { return x.from(j)(0); }
+
 // one lane's share of R rows' products over columns [c0, c1): vector steps
 // lane, lane + 32, ... when `vec_ok` (c0, c1 multiples of V), U steps at a
 // time, the ragged rest U / 4 at a time and then one at a time; else single
@@ -244,7 +326,7 @@ __device__ __forceinline__ void lane_sum(Acc (&acc)[R], const in_row<SA> (&row)[
     for (; s < steps; ++s) vec_steps<1, R, V, SA, SX>(acc, as, xs);
   } else {
     for (int64_t j = c0 + lane; j < c1; j += 32) {
-      const float xv = x.from(j)(0);
+      const auto xv = x_at(x, j);
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r].add(0, row[r].from(j)(0), xv);
     }
@@ -341,6 +423,42 @@ __global__ void __launch_bounds__(kWarps * 32)
                        range_t<float, float>(static_cast<float*>(out), m, 1, 1),
                        range_t<float, float>(out_lo, m, 1, 1), out_lo != nullptr};
     gemv_group<SA, SX, TIER>(ra, rx, rr, ro, alpha, beta, bn, vec_ok, row0, threadIdx.x & 31);
+  }
+}
+
+// gemv_rows for x given as a DF pair (x_hi, x_lo, both f32) in the precise
+// df64 tier: the residual r = b - A x of a refinement whose x carries more
+// than an f32 holds. One pass over A: each lane's chains add the exact
+// products of A with x_hi and the f32 products with x_lo (DFXChains), so the
+// row's sum keeps x_lo's part without a second pass, A x_lo, over A. A step
+// loads three packs (A, x_hi, x_lo), so a lane keeps kDfxLoads of them in
+// flight rather than kLoads; the fold, the epilogue and the result are
+// gemv_rows' (store_row), in the storage of res or as the (hi, lo) pair.
+template <class SA>
+__global__ void __launch_bounds__(kWarps * 32)
+    gemv_rows_dfx(const SA* __restrict__ A, const float* __restrict__ x_hi,
+                  const float* __restrict__ x_lo, const void* res, int res_st, void* out,
+                  float* out_lo, int64_t m, int64_t n, float alpha, float beta, int vec_ok) {
+  constexpr int V = vec_width<SA, float>();
+  const int64_t row0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kRows;
+  if (row0 >= m) return;  // a whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const range_t<float, const SA> ra(A, m, n, n);
+  const DFXRow x{range_t<float, const float>(x_hi, 1, n, n).row(0),
+                 range_t<float, const float>(x_lo, 1, n, n).row(0)};
+  const range_t<float, const Coded> rr(res, res_st, m, 1, 1);
+  const Out<TIER_DF_PRECISE> ro{range_t<DF, Coded>(out, res_st, m, 1, 1),
+                                range_t<float, float>(static_cast<float*>(out), m, 1, 1),
+                                range_t<float, float>(out_lo, m, 1, 1), out_lo != nullptr};
+  in_row<SA> row[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) row[r] = ra.row(row0 + r < m ? row0 + r : m - 1);
+  DFXChains<V> acc[kRows];
+  lane_sum<kRows, kDfxLoads / kRows, V, SA, float>(acc, row, x, 0, n, vec_ok, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const DF total = warp_reduce<TIER_DF_PRECISE>(acc[r].result());
+    if (lane == 0 && row0 + r < m) store_row<TIER_DF_PRECISE>(total, rr, ro, row0 + r, alpha, beta);
   }
 }
 
@@ -503,5 +621,31 @@ extern "C" int accblas_gemv(const void* A, const void* x, const void* res, void*
         return cudaGetLastError();
       });
     });
+  });
+}
+
+// gemv_rows_dfx: A m x n row-major in storage a_st, x given as a DF pair of
+// n floats each (x_hi, x_lo), res and out as accblas_gemv's (res_st the
+// storage of res and of out unless out_lo is given), in the precise df64
+// tier; the arguments in accblas_gemv's order, x's two words in x's place.
+// The vector loads run where A, x_hi and x_lo are 16-byte aligned and n is
+// a multiple of the vector width. Returns cudaGetLastError() after the
+// launch, or the error that kept the kernel from launching.
+extern "C" int accblas_gemv_dfx(const void* A, const float* x_hi, const float* x_lo,
+                                const void* res, void* out, float* out_lo, int64_t m,
+                                int64_t n, float alpha, float beta, int a_st, int res_st,
+                                void* stream) {
+  using namespace accblas;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(x_hi) |
+                         reinterpret_cast<uintptr_t>(x_lo)) & 15) == 0;
+  return with_storage(a_st, [&](auto ta) {
+    using SA = typename decltype(ta)::type;
+    const int vec_ok = aligned && n % vec_width<SA, float>() == 0;
+    constexpr int rows = kWarps * kRows;  // per CTA
+    gemv_rows_dfx<SA><<<static_cast<unsigned>((m + rows - 1) / rows), kWarps * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const SA*>(A), x_hi, x_lo, res, res_st, out, out_lo, m, n, alpha, beta,
+        vec_ok);
+    return cudaGetLastError();
   });
 }

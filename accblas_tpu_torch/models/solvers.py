@@ -13,6 +13,12 @@ tensors, and ``cg`` freezes it with ``torch.where`` once it has stopped, as
 the JAX loop's exit does. Every matrix-vector product is ``acc_gemv`` and
 every dot product ``acc_dot`` (the port's kernels on a CUDA tensor, their
 plain versions on a CPU tensor).
+
+``lu_refine`` is the solve phase of HPL-MxP (LAPACK's DSGESV and cuSOLVER's
+IRS solvers run the same loop): LU factors stored narrow, each correction
+solved through them by ``acc_trsv`` in f32, the residual taken against the
+stored A by the df64 GEMV with x carried as a DF pair, until HPL's scaled
+residual test passes. It has no counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,12 +28,25 @@ import torch
 from ..ops import df64 as dfm
 from ..ops import dot as dotops
 from ..ops import gemv as gemvops
+from ..ops import trsv as trsvops
 from ..utils.spans import span
 
 # with tol > 0, cg reads its 0-d `live` flag on the host once per this many
 # iterations to stop early; the frozen state does not move, so the results
 # do not depend on it
 POLL_EVERY = 16
+
+# refinement steps lu_refine has taken, one a correction, counted where it
+# takes each (read as the kernels' launch counters are)
+refine_steps = 0
+
+# the unit roundoff of HPL's scaled residual, double precision's, and the
+# largest scaled residual HPL accepts
+HPL_EPS = 2.0**-53
+HPL_THRESHOLD = 16.0
+
+# elements of A a block of inf_norm's row sums reads at once
+_NORM_BLOCK = 1 << 26
 
 
 def _matvec(a, x, ar: str):
@@ -153,3 +172,87 @@ def power_iterate(a, x0, *, iters: int = 20, ar: str = "f32"):
         lam = _dot(x, y, ar)
         x = y / torch.sqrt(_dot(y, y, ar))
     return x, lam
+
+
+def inf_norm(a) -> torch.Tensor:
+    """||A||_inf, the largest row sum of |A|, as a 0-d float64 tensor on a's
+    device: the row sums in float64, a block of rows at a time, so that no
+    |A| of A's size is made."""
+    rows = max(1, _NORM_BLOCK // max(a.shape[1], 1))
+    return torch.stack([a[r:r + rows].abs().sum(1, dtype=torch.float64).max()
+                        for r in range(0, a.shape[0], rows)]).max()
+
+
+def _lu_solve(lu, v):
+    """U^-1 L^-1 v through the packed factors, both sweeps in f32."""
+    y = trsvops.acc_trsv(lu, v, "lower", True, ar="f32", unstable_ok=True)
+    return trsvops.acc_trsv(lu, y, "upper", False, ar="f32", unstable_ok=True)
+
+
+def _residual(a, x, b, ar: str, anorm, bnorm, scale):
+    """(r's f32 words, HPL's scaled residual of x, the 0-d stop flag): r =
+    b - A x in `ar`, its words rounded to f32 for the correction, and the
+    flag set once the scaled residual is at most HPL_THRESHOLD or not
+    finite."""
+    if ar == "df64":
+        r = gemvops.acc_gemv(a, x, b, -1.0, 1.0, ar="df64", df_out=True).hi
+    else:
+        r = gemvops.acc_gemv(a, x.hi, b, -1.0, 1.0, ar="f32")
+    xnorm = x.hi.abs().max().double()
+    resid = r.abs().max().double() / ((anorm * xnorm + bnorm) * scale)
+    return r, resid, (resid <= HPL_THRESHOLD) | ~torch.isfinite(resid)
+
+
+def lu_refine(lu, a, b, *, ar: str = "df64", max_steps: int = 30, anorm=None):
+    """Solve A x = b by iterative refinement on LU factors (the solve phase
+    of HPL-MxP).
+
+    `lu` holds the packed factors L\\U of A without pivoting, L unit lower,
+    in any storage the TRSV reads (bf16, say); `a` is A in f32; `b` has
+    shape (n,). x0 = U^-1 L^-1 b; then each step takes r = b - A x in `ar`
+    and tests HPL's criterion, ||r||_inf / ((||A||_inf ||x||_inf +
+    ||b||_inf) n eps) <= 16 with eps = 2^-53, on the device; the
+    host reads the flag once a step, and otherwise the step adds U^-1 L^-1
+    r_hi to x. ||A||_inf is `anorm` if given, else computed once
+    (``inf_norm``).
+
+    `ar` 'df64' takes the residual by the df64 GEMV with x a DF pair, in
+    one pass over A, and adds each correction to x in DF; 'f32' keeps x and
+    the residual in f32 (x then a DF whose lo word is 0), which caps the
+    scaled residual far above HPL's threshold at any large n.
+
+    The two sweeps run in f32 arithmetic with ``unstable_ok``: on narrow
+    factors beyond 1024 rows their recurrence error is what ``acc_trsv``
+    warns of, and here it only slows the contraction, which the df64
+    residual corrects step by step.
+
+    Returns (x as a DF pair, the last scaled residual as a 0-d float64
+    tensor, the steps taken); after `max_steps` steps x is returned
+    whether or not the test passed, and the scaled residual says which.
+    """
+    global refine_steps
+    if ar not in ("df64", "f32"):
+        raise ValueError(f"lu_refine arithmetic {ar!r}: 'df64' or 'f32'")
+    with span("accblas.refine"):
+        n = a.shape[0]
+        b32 = b.float()
+        anorm = inf_norm(a) if anorm is None else torch.as_tensor(
+            anorm, dtype=torch.float64, device=b32.device)
+        bnorm = b32.abs().max().double()
+        scale = n * HPL_EPS
+        x = dfm.df_from(_lu_solve(lu, b32))
+        r, resid, stop = _residual(a, x, b32, ar, anorm, bnorm, scale)
+        steps = 0
+        while True:
+            # the flag's read lies between steps, outside both
+            with span("accblas.refine.poll"):
+                done = bool(stop)
+            if done or steps == max_steps:
+                break
+            with span("accblas.refine.step"):
+                d = _lu_solve(lu, r)
+                x = dfm.df_add(x, dfm.df_from(d)) if ar == "df64" else dfm.df_from(x.hi + d)
+                r, resid, stop = _residual(a, x, b32, ar, anorm, bnorm, scale)
+                steps += 1
+                refine_steps += 1
+        return x, resid, steps

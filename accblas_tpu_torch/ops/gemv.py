@@ -20,7 +20,9 @@ and x 16-byte aligned and n a multiple of 16, up to n = 46480 columns (the
 widest x a CTA's shared memory stages); otherwise ``gemv_rows``, one warp a
 row, which reads and widens x along each row. The width edge is a routing
 by shape: past it the staged x does not fit. Both kernels give the same
-bits. A launch that fails raises; neither kernel stands in for the other.
+bits. An x given as a DF pair (df64 only) runs ``gemv_rows_dfx`` through its
+own C entry (``accblas_gemv_dfx``). A launch that fails raises; no kernel
+stands in for another.
 Counterpart of ``accblas_tpu.ops.gemv``.
 """
 
@@ -38,9 +40,11 @@ from . import df64 as dfm
 from .common import pow2_ceil, pow2_tree_sum, route
 
 # launches of the GEMV kernels, counted where the wrapper launches each:
-# gemv_rows, and gemv_staged (A and x stored in f8)
+# gemv_rows, gemv_staged (A and x stored in f8), and gemv_rows_dfx (x a DF
+# pair)
 launches = 0
 staged_launches = 0
+dfx_launches = 0
 
 # the kernels a call may ask the C entry for, in bits 16-17 of its codes:
 # its own choice, or one kernel forced (the tests and chip_smoke.py hold
@@ -52,6 +56,11 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+]
+_DFX_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 # the C entry's report of the kernel it launched: 1 gemv_staged, 0 gemv_rows
 _ran = ctypes.c_int()
@@ -82,7 +91,9 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     m, n = a.shape
     ar = "df64" if tier.startswith("df64") else tier
     ra = make_range(ar, dtypes.canon(a.dtype), a, const=True)
-    rx = make_range(ar, dtypes.canon(x.dtype), x, const=True)
+    dfx = isinstance(x, dfm.DF)
+    rx = [make_range("f32", "f32", w, const=True) for w in x] if dfx \
+        else make_range(ar, dtypes.canon(x.dtype), x, const=True)
     rr = make_range("f32", dtypes.canon(res.dtype), res, const=True)
     rv = torch.zeros(m, dtype=torch.float32, device=a.device) if beta == 0.0 \
         else rr.load() * beta  # res is never read when beta == 0
@@ -90,8 +101,14 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     ro = make_range(ar, dtypes.canon(res.dtype), out)
     if ar == "df64":
         # the accessor's cast-on-load to the f32 carriers of the df64 values
-        av, xa = ra.load_raw().float(), rx.load_raw().float()
-        p, e = dfm.two_prod(av, xa) if tier == "df64_precise" else (av * xa, None)
+        av = ra.load_raw().float()
+        if dfx:  # exact products with x_hi, f32 ones with x_lo into the error words
+            xh, xl = (r.load() for r in rx)
+            p, e = dfm.two_prod(av, xh)
+            e = e + av * xl
+        else:
+            xa = rx.load_raw().float()
+            p, e = dfm.two_prod(av, xa) if tier == "df64_precise" else (av * xa, None)
         val = dfm.df_add(dfm.df_mul_f32(dfm.df_tree_sum(p, e), alpha), dfm.df_from(rv))
         if df_out:
             words = [torch.empty(m, dtype=torch.float32, device=a.device) for _ in "hl"]
@@ -121,6 +138,27 @@ def _gemv_plain(a, x, res, alpha: float, beta: float, tier: str, df_out: bool):
     return out
 
 
+def _launch(what: str, a, xs, res, df_out: bool, entry: str, argtypes, args, tail=()):
+    """One launch through the C entry `entry` of csrc/gemv.cu on the current
+    stream: checks A, the words of x in `xs` and res, allocates the result,
+    and, unless A has no rows, calls the entry with the pointers of A, of
+    `xs`, of res and of the result's words, then m, n, `args`, the stream
+    and `tail`. Returns the result; the caller counts the launch."""
+    if not (a.is_contiguous() and res.is_contiguous() and all(w.is_contiguous() for w in xs)):
+        raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
+    m, n = a.shape
+    out = torch.empty(m, dtype=torch.float32 if df_out else res.dtype, device=a.device)
+    out_lo = torch.empty(m, dtype=torch.float32, device=a.device) if df_out else None
+    if m > 0:
+        fn = _build.function("gemv", entry, argtypes)
+        with _build.on_device(a):
+            err = fn(a.data_ptr(), *[w.data_ptr() for w in xs], res.data_ptr(), out.data_ptr(),
+                     None if out_lo is None else out_lo.data_ptr(), m, n, *args,
+                     _build.stream(a), *tail)
+        _build.check(err, f"{what} launch")
+    return dfm.DF(out, out_lo) if df_out else out
+
+
 def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int,
                force: str | None = None):
     """Launch a csrc/gemv.cu kernel on the current stream, the one the C
@@ -129,23 +167,28 @@ def _gemv_cuda(a, x, res, alpha: float, beta: float, df_out: bool, codes: int,
     and res and the tier code, 4 bits each from the lowest (`_codes`)."""
     global launches, staged_launches
     with span("accblas.gemv.launch"):
-        if not (a.is_contiguous() and x.is_contiguous() and res.is_contiguous()):
-            raise ValueError("gemv kernel needs a row-major contiguous A and contiguous x, res")
-        m, n = a.shape
-        out = torch.empty(m, dtype=torch.float32 if df_out else res.dtype, device=a.device)
-        out_lo = torch.empty(m, dtype=torch.float32, device=a.device) if df_out else None
-        if m > 0:
-            fn = _build.function("gemv", "accblas_gemv", _ARGTYPES)
-            with _build.on_device(a):
-                err = fn(a.data_ptr(), x.data_ptr(), res.data_ptr(), out.data_ptr(),
-                         None if out_lo is None else out_lo.data_ptr(), m, n, alpha, beta,
-                         _block_cols(n), codes | FORCE[force] << 16, _build.stream(a), _RAN)
-            _build.check(err, "gemv kernel launch")
+        out = _launch("gemv kernel", a, (x,), res, df_out, "accblas_gemv", _ARGTYPES,
+                      (alpha, beta, _block_cols(a.shape[1]), codes | FORCE[force] << 16),
+                      (_RAN,))
+        if a.shape[0] > 0:
             if _ran.value:
                 staged_launches += 1
             else:
                 launches += 1
-    return dfm.DF(out, out_lo) if df_out else out
+    return out
+
+
+def _gemv_dfx_cuda(a, x: dfm.DF, res, alpha: float, beta: float, df_out: bool):
+    """Launch csrc/gemv.cu `gemv_rows_dfx` (x a DF pair, the precise df64
+    tier) on the current stream and count it."""
+    global dfx_launches
+    with span("accblas.gemv.launch"):
+        out = _launch("gemv_rows_dfx kernel", a, x, res, df_out, "accblas_gemv_dfx",
+                      _DFX_ARGTYPES, (alpha, beta, _build.storage_code(a, "gemv A"),
+                                      _build.storage_code(res, "gemv res")))
+        if a.shape[0] > 0:
+            dfx_launches += 1
+    return out
 
 
 def _codes(a, x, res, tier: str) -> int:
@@ -163,13 +206,22 @@ def _gemv_call(a, x, res, alpha, beta, ar: str, precise: bool, df_out: bool = Fa
     if a.dim() != 2:
         raise ValueError(f"gemv expects a 2-D A, got {tuple(a.shape)}")
     m, n = a.shape
+    dfx = isinstance(x, dfm.DF)
+    if dfx:
+        if ar != "df64":
+            raise ValueError("a DF x requires ar='df64'")
+        if any(w.dtype != torch.float32 or w.shape != (n,) for w in x):
+            raise ValueError(f"a DF x needs two float32 words of shape ({n},)")
+        precise = True  # x_lo below an f32 product's rounding would be lost
     if x.shape != (n,) or res.shape != (m,):
         raise ValueError(f"shape mismatch: A{tuple(a.shape)} x{tuple(x.shape)} "
                          f"res{tuple(res.shape)}")
     tier = _build.tier(ar, precise, "gemv")
-    codes = _codes(a, x, res, tier)
+    codes = _codes(a, x.hi if dfx else x, res, tier)
     alpha, beta = float(alpha), float(beta)
-    if route("gemv", a, x, res) == "cuda":
+    if route("gemv", a, *(x if dfx else (x,)), res) == "cuda":
+        if dfx:
+            return _gemv_dfx_cuda(a, x, res, alpha, beta, df_out)
         return _gemv_cuda(a, x, res, alpha, beta, df_out, codes)
     return _gemv_plain(a, x, res, alpha, beta, tier, df_out)
 
@@ -191,7 +243,13 @@ def acc_gemv(a, x, res, alpha=1.0, beta=1.0, ar="df64", *, precise=False, df_out
     arithmetic per `ar` ('f32' | 'bf16' | 'f16' | 'df64').
 
     `df_out=True` (df64 only) returns the unrounded result as a `DF` pair of
-    float32 tensors instead of casting to the storage of `res`."""
+    float32 tensors instead of casting to the storage of `res`.
+
+    `x` may be a `DF` pair of float32 vectors (df64 only): each row's sum is
+    then the sum of two_prod(a, x_hi) + a * x_lo, the precise tier's exact
+    products whatever `precise` says, in one pass over A (kernel
+    ``gemv_rows_dfx``), e.g. the residual b - A x of a refinement whose x
+    carries more than an f32 holds."""
     with span("accblas.gemv"):
         ar = dtypes.check_arithmetic(ar)
         return _gemv_call(a, x, res, alpha, beta, ar, precise=precise, df_out=df_out)

@@ -2,7 +2,7 @@
 
 ``span(name)`` is a context manager around one phase of a call: the public
 op, its launch, the TRSV's phase 1 and sweep, a CG pass and its residual
-poll, a library's load. While a ``torch.profiler.profile`` runs (the
+poll, a refinement solve, its steps and its flag's poll, a library's load. While a ``torch.profiler.profile`` runs (the
 benchmark's traced slices, or ``utils.bench.profile_trace``), each span is
 a host event of that name, at function scope beside the ATen ops and on the
 clock of the device's trace; otherwise it is a shared no-op object, and

@@ -15,12 +15,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its library's build seconds, from the build log, beside the figures of
      the same kernels before they did (RANGE_PATH_BEFORE); a spill they did
      not have fails the run; and every instantiation of dot_reduce,
-     gemv_rows, gemv_staged and trsv_sweep held to its registers and spill
+     gemv_rows, gemv_staged, gemv_rows_dfx and trsv_sweep held to its registers and spill
      bytes in accblas_tpu_torch/csrc/registers.json ("registers" lines): a
      rise of either, or an instantiation the table lacks, fails the run;
   3. checks: every tier of the DOT and GEMV kernels at mid and ragged sizes,
      held against the plain torch version on the same inputs and against a
      float64 reduction on the card, under accblas_tpu_torch.utils.tolerance;
+     the GEMV with x a DF pair (gemv_rows_dfx) at the same shapes over f32
+     and bf16 A, with x's words one element off alignment and with beta = 0
+     over a NaN res, within 2^-46 of each row's scale (DFX_TOL), one launch
+     of its own counter a call;
      the TRSV/TRSM sweep in every mode, storage and tier, and the triangular
      residual, at n = 1000 (ragged) and 4096 on seeded LU factors, against
      the plain versions and a float64 solve of the stored triangle; the
@@ -34,7 +38,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      acc_dot Acc<f32, bf16> at n = 2^29 (gen_f32 dot_x, dot_y as bf16),
      acc_gemv Acc<f32, bf16> at 16384^2 (beta = 0; gemv_a, gemv_x,
      gemv_res), and the flagship 1024x2048 GEMV (alpha = beta = 1) from
-     seeded host data; then trsv fixed f32 and acc_trsv Acc<df64, f32> at
+     seeded host data; the refinement cell's df64 residual b - A x with x a
+     DF pair at 65536^2 f32 (one gemv_rows_dfx launch, held to the plain
+     path and float64 by blocks of rows, then timed beside its bytes bound,
+     the plain path and torch.mv of A and x's hi word: the "gemv_dfx"
+     record); then trsv fixed f32 and acc_trsv Acc<df64, f32> at
      n = 16384 (upper, unit, A = uniform(key(0), (n, n), -1, 1)/n, b = ones,
      as bench.py) and the df64 residual of the f32 solution
      (tri_gemv_df64); each checked against float64, with the launch counters
@@ -227,6 +235,11 @@ def phase_build():
     log(f"build: {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
     log_ptxas("gemv_rows", _build.build_log("gemv"))
     log_ptxas("gemv_staged", _build.build_log("gemv"))
+    # gemv_rows_dfx: one template argument, A's storage (the precise df64 tier)
+    for pretty, (regs, spill) in ptxas_entries(_build.build_log("gemv")).items():
+        if "::gemv_rows_dfx<" in pretty:
+            log(f"ptxas {pretty[pretty.index('gemv_rows_dfx'):pretty.index('>(') + 1]}: "
+                f"{regs} registers, {spill} spill bytes")
     log_ptxas("dot_reduce", _build.build_log("dot"))
     for line in _build.build_log("trsv").splitlines():
         if "registers" in line or "spill" in line:
@@ -262,7 +275,7 @@ def log_range_path():
 
     for kernel, before in RANGE_PATH_BEFORE.items():
         text = _build.build_log(before["source"])
-        found = [rs for pretty, rs in ptxas_entries(text).items() if kernel in pretty]
+        found = [rs for pretty, rs in ptxas_entries(text).items() if f"::{kernel}<" in pretty]
         regs = [r for r, _ in found]
         spill = max(sp for _, sp in found)
         lo, hi = before["registers"]
@@ -279,7 +292,8 @@ def log_range_path():
 # source, as the checkout's sources build them (scripts/torch_registers.py
 # writes the table): a build above it fails the run
 REGISTERS = Path(__file__).resolve().parent / "accblas_tpu_torch" / "csrc" / "registers.json"
-GATED = {"dot": ("dot_reduce",), "gemv": ("gemv_rows", "gemv_staged"), "trsv": ("trsv_sweep",)}
+GATED = {"dot": ("dot_reduce",), "gemv": ("gemv_rows", "gemv_staged", "gemv_rows_dfx"),
+         "trsv": ("trsv_sweep",)}
 
 
 def kernel_registers(text: str, kernels) -> dict:
@@ -365,7 +379,8 @@ def log_ptxas(kernel: str, text: str):
     """Registers and spill bytes of each instantiation of `kernel`, from the
     ptxas -v lines of its library's build log: a line per tier, and one per
     main-path instantiation (GEMV's A and x storage, tier)."""
-    found = {pretty: rs for pretty, rs in ptxas_entries(text).items() if kernel in pretty}
+    found = {pretty: rs for pretty, rs in ptxas_entries(text).items()
+             if f"::{kernel}<" in pretty}
     if not found:
         raise AssertionError(f"no ptxas report of {kernel} in the build log")
     by_tier = {}
@@ -469,6 +484,73 @@ def _gemv_case(chk: Checks, label: str, a, x, res, alpha, beta, ar, precise=Fals
     chk.record(ok, f"gemv {label} {a.shape[0]}x{a.shape[1]}: kernel_err={k_err:.3e} "
                    f"plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} bound={tol:.3e} "
                    f"finite={finite}")
+
+
+# the DF-x GEMV's bound on each row, relative to |alpha| |A| |x| + |beta|
+# |r|: the card tests' (tests/test_torch_cuda.py)
+DFX_TOL = 2.0**-46
+
+
+def _df_x(n: int, seed: int, dev, x_off: int = 0):
+    """x as a DF pair whose lo words are not zero, each word `x_off`
+    elements into its buffer, and its float64 value."""
+    from accblas_tpu_torch.ops import df64 as dfm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x64 = torch.rand(n + x_off, dtype=torch.float64, generator=g, device=dev)[x_off:] - 0.5
+    hi = torch.empty(n + x_off, device=dev)[x_off:]
+    lo = torch.empty(n + x_off, device=dev)[x_off:]
+    hi.copy_(x64)
+    lo.copy_(x64 - hi.double())
+    return dfm.DF(hi, lo), hi.double() + lo.double()
+
+
+def _dfx_errs(a, x, x64, r, alpha: float, beta: float, got, rows: int = 2048):
+    """The DF-x GEMV `got` (hi, lo) against the plain path and float64, a
+    block of rows at a time (the plain path's temporaries of a 65536^2 A
+    would not fit beside it): each row's error over |alpha| |A| |x| + |beta|
+    |r|, the largest of the kernel's, the plain path's and the kernel's
+    against the plain path, and the largest |kernel - plain|."""
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.ops import df64 as dfm
+
+    worst = []  # a block's largest of each; torch's max keeps a NaN, which fails every bound
+    for r0 in range(0, a.shape[0], rows):
+        r1 = min(a.shape[0], r0 + rows)
+        plain = dfm.df_to_f64(gemvops._gemv_plain(a[r0:r1], x, r[r0:r1], alpha, beta,
+                                                  "df64_precise", True))
+        mine = got.hi[r0:r1].double() + got.lo[r0:r1].double()
+        # res is never read when beta == 0 (a NaN there stays out)
+        a64 = a[r0:r1].double()
+        r64 = torch.zeros_like(a64[:, 0]) if beta == 0 else r[r0:r1].double()
+        exact = alpha * (a64 @ x64) + beta * r64
+        scale = (abs(alpha) * (a64.abs() @ x64.abs()) + abs(beta) * r64.abs()).clamp_min(1e-300)
+        worst.append(torch.stack([((mine - exact).abs() / scale).max(),
+                                  ((plain - exact).abs() / scale).max(),
+                                  ((mine - plain).abs() / scale).max(),
+                                  (mine - plain).abs().max()]))
+        del plain, mine, a64, r64, exact, scale
+    k_err, p_err, kp, max_abs = torch.stack(worst).max(0).values.tolist()
+    return k_err, p_err, kp, max_abs
+
+
+def _gemv_dfx_case(chk: Checks, label: str, a, r, alpha: float, beta: float, x_off: int = 0):
+    """acc_gemv with x a DF pair (gemv_rows_dfx, one launch counted apart
+    from gemv_rows) against its plain path and float64 on the card."""
+    from accblas_tpu_torch.ops import gemv as gemvops
+
+    x, x64 = _df_x(a.shape[1], a.shape[0] + a.shape[1], a.device, x_off)
+    before = (gemvops.launches, gemvops.staged_launches, gemvops.dfx_launches)
+    got = gemvops.acc_gemv(a, x, r, alpha, beta, "df64", df_out=True)
+    counted = (gemvops.launches - before[0], gemvops.staged_launches - before[1],
+               gemvops.dfx_launches - before[2])
+    finite = bool(torch.isfinite(got.hi).all() & torch.isfinite(got.lo).all())
+    k_err, p_err, kp, _ = _dfx_errs(a, x, x64, r, alpha, beta, got)
+    ok = (finite and counted == (0, 0, 1) and k_err <= DFX_TOL and p_err <= DFX_TOL
+          and kp <= 2 * DFX_TOL)
+    chk.record(ok, f"gemv dfx {label} {a.shape[0]}x{a.shape[1]} x_off={x_off}: "
+                   f"kernel_err={k_err:.3e} plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} "
+                   f"bound={DFX_TOL:.3e} launches(rows, staged, dfx)={counted} finite={finite}")
 
 
 def _packed_lu(n: int, seed: int, dev):
@@ -721,6 +803,12 @@ def phase_checks():
                    precise=True, df_out=True)
         _gemv_case(chk, "fixed f32 beta=0 res=NaN", a, x, nan, 1.0, 0.0, "f32", fixed=True)
         _gemv_case(chk, "Acc<df64,bf16> beta=0 res=NaN", ab, xb, nan, 1.0, 0.0, "df64")
+        # x a DF pair: vector loads where n allows them, and x's words one
+        # element off a 16-byte boundary (the element loads)
+        for st in (torch.float32, bf):
+            _gemv_dfx_case(chk, f"Acc<df64,{st}> residual", a.to(st), r, -1.0, 1.0)
+        _gemv_dfx_case(chk, "Acc<df64,f32> a=-1.5 b=0.5", a, r, -1.5, 0.5, x_off=1)
+        _gemv_dfx_case(chk, "Acc<df64,f32> beta=0 res=NaN", a, nan, 1.0, 0.0)
         del a, x, r, ab, xb
 
     torch.cuda.synchronize()
@@ -879,6 +967,7 @@ def phase_main() -> list[dict]:
         (gemvops.gemv(a32, x32, rg, 1.0, 0.0)
          - gemvops._gemv_plain(a32, x32, rg, 1.0, 0.0, "f32", False)).abs().max())
     del a32, x32
+    dfx_record = gemv_dfx_main(dev)
 
     return [
         {"name": "dot", "route": "cuda", "source": "accblas_tpu_torch/csrc/dot.cu",
@@ -900,7 +989,82 @@ def phase_main() -> list[dict]:
          "plain_ms": gemv["f32"]["plain_ms"], "bound_ms": gemv["f32"]["bound_ms"],
          "bound_by": gemv["f32"]["bound_by"], "library_ms": gemv["f32"]["library_ms"],
          "device_ms": gemv["f32"]["device_ms"]},
+        dfx_record,
     ]
+
+
+# the refinement cell's system (blasbench refine.bf16.n65536): A in f32
+N_REFINE = 65536
+
+
+def gemv_dfx_main(dev) -> dict:
+    """The refinement's residual r = b - A x at the cell's shape, through
+    the public acc_gemv with x a DF pair: A (65536, 65536) f32
+    uniform(-0.5, 0.5), 17.2 GB, drawn on the card from SEED. The launch
+    counters are reset just before the call, which must be one
+    gemv_rows_dfx launch and no other GEMV; the (hi, lo) result is held to
+    the plain path and to float64 a block of rows at a time (DFX_TOL). Then
+    timed (CUDA events, the minimum of 10) beside the bytes bound (A, x's
+    two words, b and r's two words), the plain path over the same blocks,
+    and torch.mv of A with x's hi word in f32 (no PyTorch call computes the
+    df64 sum; torch.mv reads the same A), with the device ms from
+    torch.profiler. Returns the `gemv_dfx` record."""
+    from accblas_tpu_torch import acc_gemv
+    from accblas_tpu_torch.ops import gemv as gemvops
+    from accblas_tpu_torch.utils.bench import benchmark_function
+
+    n = N_REFINE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.rand(n, n, generator=g, device=dev).sub_(0.5)
+    b = torch.rand(n, generator=g, device=dev).sub_(0.5)
+    x, x64 = _df_x(n, SEED, dev)
+    gemvops.launches = gemvops.staged_launches = gemvops.dfx_launches = 0
+    got = acc_gemv(a, x, b, -1.0, 1.0, ar="df64", df_out=True)
+    torch.cuda.synchronize()
+    launches = {"gemv_rows": gemvops.launches, "gemv_staged": gemvops.staged_launches,
+                "gemv_rows_dfx": gemvops.dfx_launches}
+    log(f"main gemv dfx {n}^2 f32 launches: {launches}")
+    if launches != {"gemv_rows": 0, "gemv_staged": 0, "gemv_rows_dfx": 1}:
+        raise AssertionError(f"the DF-x residual is not one gemv_rows_dfx launch: {launches}")
+    k_err, p_err, kp, max_abs = _dfx_errs(a, x, x64, b, -1.0, 1.0, got)
+    finite = bool(torch.isfinite(got.hi).all() & torch.isfinite(got.lo).all())
+    log(f"main gemv dfx Acc<df64,f32> {n}^2 residual: kernel_err={k_err:.3e} "
+        f"plain_err={p_err:.3e} kernel_vs_plain={kp:.3e} bound={DFX_TOL:.3e} finite={finite}")
+    if not (finite and max(k_err, p_err) <= DFX_TOL and kp <= 2 * DFX_TOL):
+        raise AssertionError("main-path DF-x GEMV out of bounds")
+    del got
+
+    def kernel():
+        return acc_gemv(a, x, b, -1.0, 1.0, ar="df64", df_out=True)
+
+    def plain():
+        for r0 in range(0, n, 2048):
+            gemvops._gemv_plain(a[r0:r0 + 2048], x, b[r0:r0 + 2048], -1.0, 1.0,
+                                "df64_precise", True)
+
+    def library():
+        return torch.mv(a, x.hi)
+
+    k1, l1, l2, k2 = (benchmark_function(f) for f in (kernel, library, library, kernel))
+    ms, lib_ms = min(k1, k2), min(l1, l2)
+    plain_ms = benchmark_function(plain, iters=2)
+    nbytes = n * n * 4 + 5 * n * 4
+    bnd, by = bound(nbytes, 2 * n * n)
+    prof, *_ = profile_calls(f"gemv dfx {n}^2", kernel,
+                             {"gemv_rows_dfx": lambda: gemvops.dfx_launches})
+    dev_ms = prof["gemv_rows_dfx"][0]
+    log(f"time gemv dfx Acc<df64,f32> {n}^2 residual: kernel {ms:.4f} ms "
+        f"{nbytes / ms / 1e6:.1f} GB/s, device {dev_ms:.4f} ms ({bnd / dev_ms:.1%} of the "
+        f"bound) | plain {plain_ms:.4f} ms | library torch.mv f32 (A x_hi) {lib_ms:.4f} ms | "
+        f"bound {bnd:.4f} ms ({by})")
+    del a, b, x, x64
+    torch.cuda.empty_cache()
+    return {"name": "gemv_dfx", "route": "cuda", "source": "accblas_tpu_torch/csrc/gemv.cu",
+            "replaces": None, "launches": launches["gemv_rows_dfx"], "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms, "library": "torch.mv f32 of A and x's hi word",
+            "device_ms": dev_ms,
+            "kernel": "gemv_rows_dfx, one launch a call: the refinement's df64 residual"}
 
 
 def profile_calls(label: str, fn, counted: dict, calls: int = 5, top: int = 8):

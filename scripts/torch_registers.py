@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Write the registers and spill bytes of every instantiation of the main
-path's kernels (dot_reduce, gemv_rows, gemv_staged, trsv_sweep), as ptxas
-reports them for this checkout's sources, to the table chip_smoke.py's
-build phase holds each build to.
+path's kernels (dot_reduce, gemv_rows, gemv_staged, gemv_rows_dfx,
+trsv_sweep), as ptxas reports them for this checkout's sources, to the
+table chip_smoke.py's build phase holds each build to.
 
     python3 scripts/torch_registers.py [--out PATH]
 

@@ -1660,3 +1660,150 @@ def test_colsum_kernel_refuses_what_it_does_not_take(cuda):
     assert tcol.launches == before
     assert torch.equal(tcol.col_sums(a[:0]), torch.zeros(1, 48, device=cuda))
     assert tcol.launches == before
+
+
+# ---- LU refinement: the GEMV with x a DF pair, the packed bf16 sweeps, lu_refine ----
+
+def _df_x(n, seed, device, x_off=0):
+    """x as a DF pair whose lo words are not zero, each word x_off elements
+    into its buffer."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x64 = torch.rand(n + x_off, dtype=torch.float64, generator=g, device=device)[x_off:] - 0.5
+    hi = torch.empty(n + x_off, device=device)[x_off:]
+    lo = torch.empty(n + x_off, device=device)[x_off:]
+    hi.copy_(x64)
+    lo.copy_(x64 - hi.double())
+    return tdf.DF(hi, lo)
+
+
+def _dfx_err(got, a, x, r, alpha, beta):
+    """|got - exact| over |alpha| |A| |x| + |beta| |r|, the largest row's."""
+    a64, x64 = a.double(), tdf.df_to_f64(x)
+    exact = alpha * (a64 @ x64) + beta * r.double()
+    scale = abs(alpha) * (a64.abs() @ x64.abs()) + abs(beta) * r.double().abs()
+    return float(((_value(got) - exact).abs() / scale.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("st", list(STORAGE))
+@pytest.mark.parametrize("m,n,x_off", [
+    (300, 1234, 0), (64, 4096, 0), (7, 16392, 0), (1, 5, 0), (4, 140_000, 0),
+    # x's words one element off a 16-byte boundary: the element loads
+    (9, 1236, 1),
+])
+def test_dfx_gemv_kernel_against_plain(cuda, st, m, n, x_off):
+    """gemv_rows_dfx (one launch, counted apart from gemv_rows) against its
+    plain path and float64: both within 2^-46 of each row's |alpha| |A| |x|
+    + |beta| |r| with the (hi, lo) result, within 2^-45 of each other; the
+    result rounded to the storage of r otherwise; the same bits on every
+    call."""
+    a = devgen.gen_f32((m, n), 21, "gemv_a", device=cuda).to(STORAGE[st])
+    x = _df_x(n, m + n, cuda, x_off)
+    r = devgen.gen_f32((m,), 21, "gemv_res", device=cuda)
+    before = (tgemv.launches, tgemv.staged_launches, tgemv.dfx_launches)
+    got = tgemv.acc_gemv(a, x, r, -1.5, 0.5, "df64", df_out=True)
+    assert (tgemv.launches, tgemv.staged_launches, tgemv.dfx_launches) == (
+        before[0], before[1], before[2] + 1)
+    plain = tgemv._gemv_plain(a, x, r, -1.5, 0.5, "df64_precise", True)
+    bound = 2.0**-46
+    assert _dfx_err(got, a, x, r, -1.5, 0.5) <= bound
+    assert _dfx_err(plain, a, x, r, -1.5, 0.5) <= bound
+    diff = (_value(got) - _value(plain)).abs()
+    assert float(diff.max()) <= 2 * bound * float(
+        (1.5 * (a.double().abs() @ tdf.df_to_f64(x).abs()) + 0.5 * r.double().abs()).max())
+    rounded = tgemv.acc_gemv(a, x, r.to(torch.bfloat16), -1.5, 0.5, "df64")
+    assert rounded.dtype == torch.bfloat16
+    assert torch.equal(rounded, tdf.df_to_f32(got).to(torch.bfloat16)) or \
+        float((rounded.double() - _value(got)).abs().max()) <= 2.0**-7 * float(
+            _value(got).abs().max())
+    for _ in range(5):
+        again = tgemv.acc_gemv(a, x, r, -1.5, 0.5, "df64", df_out=True)
+        assert torch.equal(again.hi, got.hi) and torch.equal(again.lo, got.lo)
+
+
+def _dominant_lu(n, seed, device):
+    """The refinement cell's system at n: uniform(-0.5, 0.5) off the
+    diagonal, each diagonal entry its row's sum of |off-diagonal entries|,
+    factored without pivoting in f32; (A, packed L\\U in f32, column-major
+    as lu_factor returns it)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand(n, n, generator=g, device=device).sub_(0.5)
+    d = a.diagonal()
+    d.zero_()
+    rows = max(1, (1 << 26) // n)
+    for r0 in range(0, n, rows):
+        d[r0:r0 + rows] = a[r0:r0 + rows].abs().sum(1)
+    with ttrsv.ieee_f32():
+        lu, piv = torch.linalg.lu_factor(a)
+    assert torch.equal(piv, torch.arange(1, n + 1, dtype=piv.dtype, device=device))
+    return a, lu
+
+
+def _tri_residual(lu, x, b, lower):
+    """|T x - b|_inf / |(|T| |x|)|_inf in float64 for T the unit lower or
+    the non-unit upper triangle of the packed `lu`, a block of rows at a
+    time."""
+    n = lu.shape[0]
+    x64 = x.double()
+    num = den = 0.0
+    for r0 in range(0, n, 2048):
+        r1 = min(n, r0 + 2048)
+        blk = lu[r0:r1].double()
+        cols = torch.arange(n, device=lu.device)[None, :]
+        rows = torch.arange(r0, r1, device=lu.device)[:, None]
+        if lower:
+            blk = torch.where(cols < rows, blk, torch.zeros((), dtype=blk.dtype, device=lu.device))
+            blk += (cols == rows).double()
+        else:
+            blk = torch.where(cols >= rows, blk, torch.zeros((), dtype=blk.dtype, device=lu.device))
+        num = max(num, float((blk @ x64 - b[r0:r1].double()).abs().max()))
+        den = max(den, float((blk.abs() @ x64.abs()).max()))
+        del blk
+    return num / den
+
+
+def test_packed_bf16_sweeps_past_2p31_elements(cuda):
+    """The lower unit and upper non-unit sweeps on one packed bf16 L\\U of
+    n = 49152 (2.4e9 elements, past 2^31, 4.8 GB): every offset into the
+    factor is 64-bit. Each solve's residual is held to f32 arithmetic, and
+    the pair to the float64 solve on the same stored factors."""
+    from blasbench.reference import refine as ref
+
+    n = 49152
+    assert n * n > 2**31
+    a, lu32 = _dominant_lu(n, 3, cuda)
+    del a
+    lu = lu32.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    del lu32
+    torch.cuda.empty_cache()
+    b = devgen.gen_f32((n,), 3, "trsv_b", device=cuda)
+    y = accblas_tpu_torch.acc_trsv(lu, b, "lower", True, ar="f32", unstable_ok=True)
+    x = accblas_tpu_torch.acc_trsv(lu, y, "upper", False, ar="f32", unstable_ok=True)
+    assert torch.isfinite(x).all()
+    assert _tri_residual(lu, y, b, True) <= 1e-5
+    assert _tri_residual(lu, x, y, False) <= 1e-5
+    x64 = ref.lu_solve(lu, b[:, None])[:, 0]
+    assert float((x.double() - x64).abs().max() / x64.abs().max()) <= 1e-5
+
+
+def test_lu_refine_kernels_against_reference(cuda):
+    """lu_refine at n = 4096 through the kernels: one gemv_rows_dfx and two
+    leaf phases and sweeps a step and one more, HPL's criterion met, and x
+    within 1e-10 of the float64 reference on the same stored factors (the
+    CPU tests' X_TOL and its reason)."""
+    from accblas_tpu_torch.models import solvers
+    from blasbench.reference import refine as ref
+
+    a, lu32 = _dominant_lu(4096, 5, cuda)
+    lu = lu32.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    b = devgen.gen_f32((4096,), 5, "trsv_b", device=cuda)
+    before = (tgemv.dfx_launches, ttrsv.sweep_launches, solvers.refine_steps)
+    x, resid, steps = solvers.lu_refine(lu, a, b)
+    assert float(resid) <= 16.0 and 1 <= steps <= 6
+    assert (tgemv.dfx_launches, ttrsv.sweep_launches, solvers.refine_steps) == (
+        before[0] + steps + 1, before[1] + 2 * (steps + 1), before[2] + steps)
+    got = tdf.df_to_f64(x)
+    x_ref = ref.solve(a, lu, b[:, None])[:, 0]
+    assert float((got - x_ref).abs().max() / x_ref.abs().max()) <= 1e-10
+    assert float(ref.hpl_resid(a, got[:, None], b[:, None])[0]) <= 16.0
+    _, control, _ = solvers.lu_refine(lu, a, b, ar="f32", max_steps=5)
+    assert float(control) > 16.0

@@ -27,8 +27,9 @@ def _table() -> dict:
 
 def test_table_covers_every_dispatched_instantiation():
     """gemv_rows for every (A, x, tier) the C entry dispatches, gemv_staged
-    for those with A and x in f8 in the f32 and df64 tiers, and dot_reduce and
-    trsv_sweep as built; each with a register count and a spill count."""
+    for those with A and x in f8 in the f32 and df64 tiers, gemv_rows_dfx
+    for every A (x a DF pair), and dot_reduce and trsv_sweep as built; each
+    with a register count and a spill count."""
     table = _table()
     assert set(table) == {k for ks in chip_smoke.GATED.values() for k in ks}
     rows = {f"gemv_rows<{a}, {x}, {t}>" for a, x, t in itertools.product(STORAGE, STORAGE, TIERS)}
@@ -36,6 +37,7 @@ def test_table_covers_every_dispatched_instantiation():
               for a, x, t in itertools.product(F8, F8, STAGED_TIERS)}
     assert set(table["gemv_rows"]) == rows
     assert set(table["gemv_staged"]) == staged
+    assert set(table["gemv_rows_dfx"]) == {f"gemv_rows_dfx<{a}>" for a in STORAGE}
     assert len(table["dot_reduce"]) == 125 and len(table["trsv_sweep"]) == 20
     for kernel in table.values():
         for regs, spill in kernel.values():
@@ -80,3 +82,17 @@ def test_gate_takes_fewer_registers(build_log):
     for rs in build_log["dot"].values():
         rs[0] -= 1
     chip_smoke.check_registers()
+
+
+def test_ptxas_lines_take_gemv_rows_apart_from_gemv_rows_dfx(build_log, monkeypatch):
+    """The build phase's ptxas and range-path lines name gemv_rows by its
+    whole template name: the report of gemv_rows_dfx, whose one template
+    argument carries no tier, is not read as a gemv_rows instantiation."""
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lines.append)
+    gemv = build_log["gemv"]
+    rows = [k for k in gemv if "::gemv_rows<" in k]
+    assert rows and any("::gemv_rows_dfx<" in k for k in gemv)
+    chip_smoke.log_ptxas("gemv_rows", "gemv")
+    tiers = [ln for ln in lines if ln.startswith("ptxas gemv_rows tier")]
+    assert sum(int(ln.split(": ")[1].split()[0]) for ln in tiers) == len(rows)
