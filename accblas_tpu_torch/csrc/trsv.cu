@@ -27,38 +27,58 @@
 //     smaller tickets, held by CTAs that have already started, so the sweep
 //     advances under any block scheduling order and for grids larger than
 //     the card holds at once;
-//   - a second counter per panel counts the block rows published. Before
-//     any wait a CTA loads its leaf-inverse row and the tile of the column
-//     block solved just before its own into registers; then it streams
-//     every column block published so far, polling again only when it has
-//     caught up, and adds A[rows, cols] * x[cols] in the order the blocks
-//     were solved;
-//   - once the block row before it has published, it adds that last tile,
-//     folds its lanes in a fixed order, forms b - corr, multiplies by the
-//     leaf inverse, stores x (hi and lo words for df64), and after a barrier
-//     publishes with a release store of the counter; the result is written
-//     in the output's storage after that, off the chain.
-// So the waiting CTAs stream the triangle while the chain advances, and the
-// chain is n / kLeaf steps of one tile-vector product, one lane fold and
-// one inverse product. x is read with __ldcg (L2, never the non-coherent
-// path); one thread per CTA polls with acquire loads and a __nanosleep
-// backoff and a barrier releases the rest. Every wait is bounded: after
-// kMaxPolls polls (seconds; a solve takes milliseconds) the kernel prints
-// which wait ran out and traps, so a protocol fault fails the run with a
-// CUDA error at the next synchronisation instead of hanging it.
+//   - a CTA hands its solved x to the next as self-validating words: each
+//     x value (hi and lo for df64, one a right-hand side of the panel) is
+//     one aligned 8-byte word {value, tag}, stored with a scalar
+//     st.relaxed.gpu.b64, single-copy atomic. The call's one memset zeroes
+//     every word and the tickets before the launch, so a word whose tag is
+//     set was published in this call, and its value half is the value;
+//   - the load of x is the wait: a warp reads a column block's 64 words in
+//     one access, two a lane, with ld.relaxed.gpu, until a vote finds every
+//     tag set, and shuffles hand each thread the values of its columns. No
+//     warp takes a word on another's say-so: no counter, no fence, no
+//     barrier, no second read of x. Each block's words are loaded with its
+//     tile of A, before the block is added: two blocks ahead where a block's
+//     words are one set (TRSV), one where they are more (df64's lo words, a
+//     panel's right-hand sides; the rest are loaded once the first have
+//     come). So a CTA far behind the chain streams tiles and words together,
+//     and the thread's row of the leaf inverse is in registers before any
+//     wait (f32 sums; df64 reads it from shared memory);
+//   - the wait for the block solved just before its own, the chain's hop,
+//     spins, one load at a time, as do the waits of the few CTAs just
+//     behind it (each must take its next block within one hop); a wait
+//     further behind sleeps between polls, the longer the further behind,
+//     so that the CTAs behind do not crowd the L2 lines of the words the
+//     next hop publishes;
+//   - once the hop's words have come, it adds that last tile, folds its
+//     lanes in a fixed order, forms b - corr, multiplies by the leaf
+//     inverse and publishes its x words; the result is written in the
+//     output's storage after that, off the chain.
+// So the CTAs behind stream the triangle while the chain advances, and a hop
+// is one L2 round trip from the producer's store to the consumer's load,
+// one tile-vector product, one lane fold, a barrier and one inverse product.
+// Every wait is bounded: after kMaxPolls polls (seconds; a solve takes
+// milliseconds) the kernel prints which wait ran out and traps, so a
+// protocol fault fails the run with a CUDA error at the next synchronisation
+// instead of hanging it. A debug build (ACCBLAS_TRSV_STAMPS, built by
+// chip_smoke.py alone) stamps each hop's phases into a buffer; a test build
+// lowers kMaxPolls and withholds one block row's words
+// (ACCBLAS_TRSV_MAX_POLLS, ACCBLAS_TRSV_WITHHOLD). The library the main path
+// loads has neither.
 //
 // Sums: each right-hand side has its own accumulators, every thread adds
 // its columns in the order the blocks were solved (in f32 each tile's
-// partial sum, see add_tile), and lanes fold in a fixed tree; only tickets
-// and counters are atomic. Results repeat bit for
-// bit, and do not depend on KP or on when a block was streamed.
+// partial sum, see add_tile), and lanes fold in a fixed tree; only the
+// tickets are atomic. Results repeat bit for bit, and do not depend on KP,
+// on when a block was streamed or on how long a wait took.
 //
 // What bounds it: the triangle is read once, n(n+1)/2 elements, about 2
 // flops each (f32), so the solve is bound by device-memory bytes: 537 MB
 // of f32 at n = 16384 is 0.16 ms at 3.35 TB/s. The chain of n / kLeaf
-// dependent steps, each a few L2 round trips (the counter, x, the release),
+// dependent steps, each an L2 round trip and a few hundred instructions,
 // bounds it from the other side (PERF.md). kThreads = 256, no shared tiles
-// and __launch_bounds__(kThreads, 2) hold two CTAs on every SM, so the 256
+// of A (16 KB of shared memory for the leaf inverse) and
+// __launch_bounds__(kThreads, 2) hold two CTAs on every SM, so the 256
 // block rows of n = 16384 are all resident at once on 132 SMs.
 // Matrix-vector work: no wgmma, no TMA.
 //
@@ -73,9 +93,9 @@
 // or one element at a time (r(j)) where A is not aligned; b a (k, npad) f32
 // range; the result an (n, k) coded range (its storage chosen at run time).
 // The published x is not an operand: it is the sweep's cross-CTA protocol
-// (__stcg stores, load_cg reads through L2), which the JAX kernel keeps in
-// VMEM scratch; an accessor read would allocate L1 lines, which are not
-// coherent across CTAs within a launch.
+// (the tagged words, stored and loaded at GPU scope through L2), which the
+// JAX kernel keeps in VMEM scratch; an accessor read would allocate L1
+// lines, which are not coherent across CTAs within a launch.
 //
 // Phase 1, `leaf_phase`: one CTA per kLeaf-row leaf, m = npad / kLeaf of
 // them. The CTA gathers its masked tile into shared memory (gather_leaf, the
@@ -116,9 +136,13 @@ constexpr int kLeaf = 64;                // rows of a block row (ops/trsv.py LEA
 constexpr int kTpr = 4;                  // threads per row of a tile
 constexpr int kThreads = kLeaf * kTpr;   // threads of a CTA
 constexpr int kCols = kLeaf / kTpr;      // columns of a tile per thread
-constexpr unsigned kMaxPolls = 1u << 21; // bound of one wait
-constexpr unsigned kSpinPolls = 64;      // polls before each poll sleeps
-constexpr unsigned kSleepNs = 256;       // the sleep between later polls
+#ifndef ACCBLAS_TRSV_MAX_POLLS
+#define ACCBLAS_TRSV_MAX_POLLS (1u << 21)
+#endif
+constexpr unsigned kMaxPolls = ACCBLAS_TRSV_MAX_POLLS;  // bound of one wait
+constexpr int kSpinBehind = 4;      // waits this close behind the chain spin
+constexpr unsigned kSleepNs = 256;  // a farther poll's sleep per column block beyond those
+constexpr int kBehindCap = 16;      // ... counted up to this many blocks
 
 // the arithmetic of the reductions: f32, or df_add over (hi, lo) pairs
 template <bool DF64>
@@ -337,51 +361,143 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- the sweep ----
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+// The CTA's leaf inverse in shared memory, copied there (cp.async) before
+// any wait. Column-major as in global memory, the rows of column c at r ^
+// (8 * ((c >> 2) & 3)): the reads of a warp (rows r0..r0+7, columns 4g +
+// 16u + e for its four lanes g) fall in 32 distinct banks, and a copy's 4
+// rows stay 16 contiguous bytes.
+__device__ __forceinline__ int inv_slot(int r, int c) {
+  return c * kLeaf + (r ^ (((c >> 2) & 3) << 3));
+}
+
+__device__ __forceinline__ void copy_leaf_inverse(float (&s)[kLeaf * kLeaf], const float* li) {
+#pragma unroll
+  for (int i = 0; i < kLeaf * kLeaf / (4 * kThreads); ++i) {
+    const int e = (i * kThreads + static_cast<int>(threadIdx.x)) * 4;
+    const float* to = &s[inv_slot(e % kLeaf, e / kLeaf)];
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(to))),
+                 "l"(li + e)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// A published x value: its f32 bits in the low half of an aligned 8-byte
+// word, kTag in the high half (the note at the top).
+using Word = unsigned long long;
+constexpr Word kTag = Word{1} << 32;
+constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
+
+__device__ __forceinline__ void publish(Word* p, float v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(kTag | __float_as_uint(v))
+               : "memory");
+}
+
+// The lane's two words of a column block's 64 (words 2 * lane and 2 * lane
+// + 1), from p, the block's first word: a warp reads the whole block in one
+// access (the vector access is two scalar ones in the memory model, each
+// single-copy atomic), and shuffles give each thread its columns (spread).
+__device__ __forceinline__ void load_words(Word (&w)[2], const Word* p) {
+  asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];"
+               : "=l"(w[0]), "=l"(w[1])
+               : "l"(p + 2 * (threadIdx.x & 31))
+               : "memory");
+}
+
+// whether every word the warp holds carries the tag (a vote of its lanes)
+__device__ __forceinline__ bool tagged(const Word (&w)[2]) {
+  return __all_sync(kFull, static_cast<unsigned>((w[0] & w[1]) >> 32) != 0);
+}
+
+#ifdef ACCBLAS_TRSV_STAMPS
+// the debug build's stamps: kStampSlots words a CTA, at (panel * nr +
+// ticket) * kStampSlots, written by thread 0 (accblas_trsv_stamps sets the
+// buffer): %globaltimer when the hop's wait began and when x was published,
+// clock64 at the hop's six points (wait begun, x come, last tile added, b -
+// corr folded and shared, inverse product done, x published), and the polls
+// the hop's wait took (1: its words had come before it looked)
+constexpr int kStampSlots = 9;
+__device__ Word* g_stamps;
+
+__device__ __forceinline__ Word globaltimer() {
+  Word v;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
   return v;
 }
+// the CTA's stamps, its pointer taken once (a read of g_stamps at each stamp
+// would be a global load on the path it times)
+#define TRSV_STAMPS_AT(nr, t) \
+  Word* const stamps = g_stamps + (blockIdx.y * static_cast<Word>(nr) + (t)) * kStampSlots
+#define TRSV_STAMP(slot, value)           \
+  do {                                    \
+    if (threadIdx.x == 0) {               \
+      stamps[slot] = (value);             \
+    }                                     \
+  } while (0)
+#else
+#define TRSV_STAMPS_AT(nr, t) \
+  do {                        \
+  } while (0)
+#define TRSV_STAMP(slot, value) \
+  do {                          \
+  } while (0)
+#endif
 
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// CTA-wide: wait until *done >= target and return what was read. Thread 0
-// polls; the barriers order the other threads' later loads of x after its
-// acquire, and keep *s from being rewritten before every thread read it.
-__device__ unsigned wait_published(const unsigned* done, unsigned target, unsigned* s,
-                                   unsigned ticket) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned v = ld_acquire(done);
-    for (unsigned polls = 1; v < target; ++polls) {
-      if (polls == kMaxPolls) {
-        printf("accblas trsv_sweep: panel %u, ticket %u waited %u polls for block row %u to "
-               "publish (counter at %u); trapping\n",
-               blockIdx.y, ticket, kMaxPolls, target - 1, v);
-        __trap();
-      }
-      if (polls >= kSpinPolls) __nanosleep(kSleepNs);
-      v = ld_acquire(done);
-    }
-    *s = v;
+// A wait that ran out: which one, from one lane of each warp, then the trap.
+// Out of line and never returning, so that a wait's registers need not be
+// kept across the print.
+__device__ __noinline__ void ran_out(int ticket, int block, int behind) {
+  if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) {
+    printf("accblas trsv_sweep: panel %u, ticket %d waited %u polls for the x of block row %d "
+           "(%d behind the chain); trapping\n",
+           blockIdx.y, ticket, kMaxPolls, block, behind);
   }
-  __syncthreads();
-  return *s;
+  __trap();
 }
 
-// V consecutive floats through L2 (x is written by other CTAs during the
-// launch, so never through the non-coherent path)
+// One more poll of a wait, trapping once a wait has taken kMaxPolls.
+__device__ __forceinline__ void count_poll(unsigned& polls, int ticket, int block, int behind) {
+  if (++polls == kMaxPolls) {
+    ran_out(ticket, block, behind);
+    __builtin_unreachable();
+  }
+}
+
+// Polls until every word of w (load_words's, from p) carries the tag, and
+// returns the polls it took (1: they had come when w was loaded). `behind`:
+// column blocks between this one and the one solved just before the CTA's
+// own (0: the chain's hop). Up to kSpinBehind it spins, one load at a time
+// (more loads in flight slowed the hop: PERF.md); further behind it sleeps
+// between polls, the longer the further. The first poll after w's load
+// never sleeps: w may have been loaded long before (with its tile).
+__device__ __forceinline__ unsigned await_words(Word (&w)[2], const Word* p, int behind,
+                                                int block, int ticket) {
+  unsigned polls = 1;
+  while (!tagged(w)) {
+    if (polls > 1 && behind > kSpinBehind) {
+      __nanosleep(kSleepNs * min(behind - kSpinBehind, kBehindCap));
+    }
+    count_poll(polls, ticket, block, behind);
+    load_words(w, p);
+  }
+  return polls;
+}
+
+// the thread's x values of a column block, in load_tile's columns, from its
+// warp's words (load_words's, every tag set): a shuffle a value
 template <int V>
-__device__ __forceinline__ void load_cg(float (&v)[V], const float* p) {
+__device__ __forceinline__ void spread(float (&x)[kCols], const Word (&w)[2], int g) {
+  static_assert(V % 2 == 0, "a vector's columns pair up with a lane's two words");
+  const float v0 = __uint_as_float(static_cast<unsigned>(w[0]));
+  const float v1 = __uint_as_float(static_cast<unsigned>(w[1]));
 #pragma unroll
-  for (int u = 0; u < V; u += 4) {
-    const float4 q = __ldcg(reinterpret_cast<const float4*>(p + u));
-    v[u] = q.x;
-    v[u + 1] = q.y;
-    v[u + 2] = q.z;
-    v[u + 3] = q.w;
+  for (int u = 0; u < kCols / V; ++u) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int c = (g + kTpr * u) * V + e;  // the column: word c, lane c / 2's
+      x[u * V + e] = __shfl_sync(kFull, e % 2 ? v1 : v0, c / 2);
+    }
   }
 }
 
@@ -416,79 +532,105 @@ __device__ __forceinline__ void load_tile(float (&av)[kCols], const row_t<float,
   }
 }
 
-// acc[q] += the tile's columns (those of load_tile) times x[c0 + ...]. In
-// f32 the tile's kCols products are summed apart and the partial added
-// once: a lane's running sum then takes one rounding per tile, not one per
-// column (one chain of n / kTpr sequential adds erred 2.1e-4 against the
-// fp64 master on the non-unit LU factor at n = 16384 on an H100, the JAX
-// sweep 4.2e-5 on a TPU v5e; PERF.md). df64 sums exactly.
-template <class SA, bool DF64, int KP>
-__device__ __forceinline__ void add_tile(DotAcc<DF64> (&acc)[KP], const float (&av)[kCols],
-                                         const float* xhi, const float* xlo, int64_t npad,
-                                         int64_t p0, int64_t k, int64_t c0, int g) {
+// acc += the tile's kCols products with x, summed apart and the partial
+// added once (f32; add_tile's note)
+__device__ __forceinline__ void add_partial(DotAcc<false>& acc, const float (&av)[kCols],
+                                            const float (&x)[kCols]) {
+  DotAcc<false> part;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) part.add(av[i], x[i], 0.f);
+  acc.s = __fadd_rn(acc.s, part.s);
+}
+
+// acc[q] += the tile's columns (those of load_tile) times the x of column
+// block `block`: the first right-hand side's words w, loaded with the tile,
+// the rest of its words (df64's lo words, a panel's other right-hand sides)
+// loaded here once those have come, each awaited (await_words; `behind` and
+// `ticket` as there) and spread to the thread's columns; `waited()` runs
+// once w's words have come. In f32 the tile's kCols products are summed
+// apart and the partial added once: a lane's running sum then takes one
+// rounding per tile, not one per column (one chain of n / kTpr sequential
+// adds erred 2.1e-4 against the fp64 master on the non-unit LU factor at
+// n = 16384 on an H100, the JAX sweep 4.2e-5 on a TPU v5e; PERF.md). df64
+// sums exactly. Returns the polls of w's wait.
+template <class SA, bool DF64, int KP, class Waited>
+__device__ __forceinline__ unsigned add_tile(DotAcc<DF64> (&acc)[KP], const float (&av)[kCols],
+                                             Word (&w)[2], const Word* xhi, const Word* xlo,
+                                             int64_t npad, int64_t p0, int64_t k, int block,
+                                             int behind, int g, int ticket, Waited&& waited) {
   constexpr int V = 16 / sizeof(SA);
+  constexpr int kRest = KP * (DF64 ? 2 : 1) - 1;  // words a lane loads here
+  const int64_t c0 = static_cast<int64_t>(block) * kLeaf;
+  const unsigned polls = await_words(w, xhi + p0 * npad + c0, behind, block, ticket);
+  waited();
+  // word set s of the block: right-hand side p0 + s / 2, hi or lo (df64),
+  // or p0 + s (f32); set 0 is w's
+  auto words_at = [&](int s) {
+    return (DF64 && s % 2 ? xlo : xhi) + (p0 + (DF64 ? s / 2 : s)) * npad + c0;
+  };
+  auto live_set = [&](int s) { return p0 + (DF64 ? s / 2 : s) < k; };
+  Word rest[kRest > 0 ? kRest : 1][2];
+#pragma unroll
+  for (int s = 1; s <= kRest; ++s) {
+    if (live_set(s)) load_words(rest[s - 1], words_at(s));
+  }
 #pragma unroll
   for (int q = 0; q < KP; ++q) {
     if (p0 + q < k) {
-      const int64_t o = (p0 + q) * npad + c0;
-      DotAcc<DF64> part;
-      DotAcc<DF64>& into = DF64 ? acc[q] : part;
-#pragma unroll
-      for (int u = 0; u < kCols / V; ++u) {
-        float h[V], l[V];
-        load_cg<V>(h, xhi + o + (g + kTpr * u) * V);
-        if constexpr (DF64) load_cg<V>(l, xlo + o + (g + kTpr * u) * V);
-#pragma unroll
-        for (int e = 0; e < V; ++e) into.add(av[u * V + e], h[e], DF64 ? l[e] : 0.f);
+      float h[kCols], l[kCols];
+      const int sh = DF64 ? 2 * q : q;  // the set of q's (hi) words
+      if (sh == 0) {
+        spread<V>(h, w, g);
+      } else {
+        await_words(rest[sh > 0 ? sh - 1 : 0], words_at(sh), behind, block, ticket);
+        spread<V>(h, rest[sh > 0 ? sh - 1 : 0], g);
       }
-      if constexpr (!DF64) acc[q].s = __fadd_rn(acc[q].s, part.s);
+      if constexpr (DF64) {
+        await_words(rest[sh], words_at(sh + 1), behind, block, ticket);
+        spread<V>(l, rest[sh], g);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) acc[q].add(av[i], h[i], l[i]);
+      } else {
+        add_partial(acc[q], av, h);
+      }
     }
   }
+  return polls;
 }
 
 // The whole sweep for the right-hand sides [p0, p0 + KP), p0 = blockIdx.y * KP.
-// sync holds two counters per panel: tickets taken, block rows published.
+// xhi (xlo for df64): the published words, (k, npad); tickets: one counter
+// a panel. Both zeroed before the launch.
 template <class SA, bool DF64, int KP>
 __global__ void __launch_bounds__(kThreads, 2)
     trsv_sweep(const SA* __restrict__ A, int64_t n, int nr, int64_t npad,
                const float* __restrict__ inv, const float* __restrict__ bt, int64_t k,
-               float* xhi, float* xlo, unsigned* sync, void* out, int out_st, int lower,
+               Word* xhi, Word* xlo, unsigned* tickets, void* out, int out_st, int lower,
                int vec_ok) {
-  __shared__ unsigned s_val;
-  __shared__ float rh[KP][kLeaf], rl[KP][kLeaf];  // b - corr of the block row
+  __shared__ unsigned s_ticket;
+  __shared__ __align__(16) float rh[KP][kLeaf], rl[KP][kLeaf];  // b - corr of the block row
+  __shared__ __align__(16) float s_inv[kLeaf * kLeaf];  // the leaf inverse (inv_slot)
   const int r = threadIdx.x / kTpr;  // the thread's row in the block row
   const int g = threadIdx.x % kTpr;  // its place among the row's lanes
   const int64_t p0 = static_cast<int64_t>(blockIdx.y) * KP;
-  unsigned* tickets = sync + 2 * blockIdx.y;
-  const unsigned* done = tickets + 1;
 
-  if (threadIdx.x == 0) s_val = atomicAdd(tickets, 1u);
+  if (threadIdx.x == 0) s_ticket = atomicAdd(tickets + blockIdx.y, 1u);
   __syncthreads();
-  const int t = static_cast<int>(s_val);
+  const int t = static_cast<int>(s_ticket);
+  TRSV_STAMPS_AT(nr, t);
   // the block row (and column block) solved at ticket j
   auto block_of = [&](int j) { return lower ? j : nr - 1 - j; };
   const int bi = block_of(t);
   const int64_t row = static_cast<int64_t>(bi) * kLeaf + r;
   const bool live = row < n;
   // A, b and the result through the accessor; the published x is the
-  // sweep's own protocol (load_cg, __stcg), not an operand read
+  // sweep's own protocol (load_words, publish), not an operand read
   const range_t<float, const SA> ra(A, n, n, n);
   const row_t<float, const SA> arow = ra.row(live ? row : 0);
 
-  // before any wait: the leaf inverse's row r (columns as in load_tile for
-  // f32; the leaf is column-major, as cuBLAS returns the batched solve), and
-  // the tile of the block solved just before this one
-  float w[kCols];
-  const float* li = inv + static_cast<int64_t>(bi) * kLeaf * kLeaf;
-#pragma unroll
-  for (int u = 0; u < kCols / 4; ++u) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w[u * 4 + e] = __ldg(li + ((g + kTpr * u) * 4 + e) * kLeaf + r);
-  }
-  float alast[kCols];
-  if (t > 0) {
-    load_tile<SA>(alast, arow, live, static_cast<int64_t>(block_of(t - 1)) * kLeaf, n, g, vec_ok);
-  }
+  // before any wait: the leaf inverse into shared memory (column-major, as
+  // cuBLAS returns the batched solve)
+  copy_leaf_inverse(s_inv, inv + static_cast<int64_t>(bi) * kLeaf * kLeaf);
   const range_t<float, const float> rb(bt, k, npad, npad);
   float b[KP];
 #pragma unroll
@@ -496,32 +638,66 @@ __global__ void __launch_bounds__(kThreads, 2)
     b[q] = g == 0 && p0 + q < k ? static_cast<float>(rb(p0 + q, row)) : 0.f;
   }
 
-  // stream every published column block but the last, in solve order
+  // every column block solved before this one, in solve order, the last
+  // (ticket t - 1) the chain's hop. Each block's tile of A and the lane's
+  // words of its x (the first right-hand side's) are loaded kRing - 1 blocks
+  // before the block is added, into a ring of kRing: two tiles in flight
+  // ahead of the one added where a block's words are one set, one where
+  // they are more (df64, panels of right-hand sides), whose registers
+  // the rest of the words take.
+  constexpr int kRing = KP * (DF64 ? 2 : 1) == 1 ? 3 : 2;
   DotAcc<DF64> acc[KP];
-  int avail = 0;  // block rows known to be published
-  for (int j = 0; j + 1 < t;) {
-    if (j >= avail) avail = static_cast<int>(wait_published(done, j + 1, &s_val, t));
+  float a[kRing][kCols];
+  Word xw[kRing][2];
+  auto fetch = [&](float (&av)[kCols], Word (&w)[2], int j) {
     const int64_t c0 = static_cast<int64_t>(block_of(j)) * kLeaf;
-    float a0[kCols];
-    load_tile<SA>(a0, arow, live, c0, n, g, vec_ok);
-    if (j + 2 < t && j + 1 < avail) {  // two tiles' loads in flight at once
-      const int64_t c1 = static_cast<int64_t>(block_of(j + 1)) * kLeaf;
-      float a1[kCols];
-      load_tile<SA>(a1, arow, live, c1, n, g, vec_ok);
-      add_tile<SA, DF64, KP>(acc, a0, xhi, xlo, npad, p0, k, c0, g);
-      add_tile<SA, DF64, KP>(acc, a1, xhi, xlo, npad, p0, k, c1, g);
-      j += 2;
-    } else {
-      add_tile<SA, DF64, KP>(acc, a0, xhi, xlo, npad, p0, k, c0, g);
-      j += 1;
+    load_tile<SA>(av, arow, live, c0, n, g, vec_ok);
+    load_words(w, xhi + p0 * npad + c0);
+  };
+#pragma unroll
+  for (int s = 0; s + 1 < kRing; ++s) {
+    if (s < t) fetch(a[s], xw[s], s);
+  }
+
+  // the thread's row of the leaf inverse, in the product's columns, taken
+  // into registers before any wait where they hold it (f32 sums), so that
+  // no load sits on the chain; df64 reads it at its use
+  constexpr bool kInvRegs = !DF64;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  float wr[kInvRegs ? kCols : 1];
+  if constexpr (kInvRegs) {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) wr[i] = s_inv[inv_slot(r, (g + kTpr * (i / 4)) * 4 + i % 4)];
+  }
+
+  unsigned hop_polls = 0;
+  auto finish = [&](const float (&av)[kCols], Word (&w)[2], int j) {
+    const int behind = t - 1 - j;
+    if (behind == 0) {
+      TRSV_STAMP(0, globaltimer());
+      TRSV_STAMP(2, clock64());
+    }
+    const unsigned polls = add_tile<SA, DF64, KP>(acc, av, w, xhi, xlo, npad, p0, k,
+                                                  block_of(j), behind, g, t, [&] {
+                                                    if (behind == 0) TRSV_STAMP(3, clock64());
+                                                  });
+    if (behind == 0) hop_polls = polls;
+  };
+  for (int j0 = 0; j0 < t; j0 += kRing) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {
+      const int j = j0 + s;
+      if (j < t) {
+        const int f = (s + kRing - 1) % kRing;  // the slot of block j + kRing - 1
+        if (j + kRing - 1 < t) fetch(a[f], xw[f], j + kRing - 1);
+        finish(a[s], xw[s], j);
+      }
     }
   }
-  // the chain: the block row before this one, then this one
-  if (t > 0) {
-    if (t > avail) wait_published(done, t, &s_val, t);
-    add_tile<SA, DF64, KP>(acc, alast, xhi, xlo, npad, p0, k,
-                           static_cast<int64_t>(block_of(t - 1)) * kLeaf, g);
-  }
+  TRSV_STAMP(8, hop_polls);
+  (void)hop_polls;
+  TRSV_STAMP(4, clock64());
 #pragma unroll
   for (int q = 0; q < KP; ++q) {
     const val_t<DF64> corr = row_fold<DF64>(acc[q].value());
@@ -532,33 +708,50 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   __syncthreads();
+  TRSV_STAMP(5, clock64());
 
-  // x_r = sum_c inv[r][c] * (b - corr)_c through the pre-inverted leaf
+  // x_r = sum_c inv[r][c] * (b - corr)_c through the pre-inverted leaf, the
+  // thread's columns as in load_tile for f32, b - corr read four at a time
   DotAcc<DF64> xa[KP];
 #pragma unroll
   for (int u = 0; u < kCols / 4; ++u) {
+    const int c0 = (g + kTpr * u) * 4;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = (g + kTpr * u) * 4 + e;
+    for (int q = 0; q < KP; ++q) {
+      const float4 h = *reinterpret_cast<const float4*>(&rh[q][c0]);
+      const float4 l = DF64 ? *reinterpret_cast<const float4*>(&rl[q][c0]) : float4{};
+      const float hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
-      for (int q = 0; q < KP; ++q) xa[q].add(w[u * 4 + e], rh[q][c], rl[q][c]);
+      for (int e = 0; e < 4; ++e) {
+        float we;
+        if constexpr (kInvRegs) {
+          we = wr[u * 4 + e];
+        } else {
+          we = s_inv[inv_slot(r, c0 + e)];
+        }
+        xa[q].add(we, hs[e], ls[e]);
+      }
     }
   }
   val_t<DF64> x[KP];
 #pragma unroll
+  for (int q = 0; q < KP; ++q) x[q] = row_fold<DF64>(xa[q].value());
+  TRSV_STAMP(6, clock64());
+  // publish: each row's x words, nothing else; the next CTAs' loads are
+  // their wait
+#pragma unroll
   for (int q = 0; q < KP; ++q) {
-    x[q] = row_fold<DF64>(xa[q].value());
+#ifdef ACCBLAS_TRSV_WITHHOLD
+    if (t == ACCBLAS_TRSV_WITHHOLD) break;  // a test build's fault: never published
+#endif
     if (g == 0 && p0 + q < k) {
       const int64_t o = (p0 + q) * npad + row;
-      __stcg(xhi + o, hi_of(x[q]));
-      if constexpr (DF64) __stcg(xlo + o, lo_of(x[q]));
+      publish(xhi + o, hi_of(x[q]));
+      if constexpr (DF64) publish(xlo + o, lo_of(x[q]));
     }
   }
-  // publish: the barrier orders every thread's x stores before thread 0's
-  // release store of the counter, which makes them visible with it (the
-  // pattern of CUTLASS's semaphore)
-  __syncthreads();
-  if (threadIdx.x == 0) st_release(tickets + 1, static_cast<unsigned>(t + 1));
+  TRSV_STAMP(7, clock64());
+  TRSV_STAMP(1, globaltimer());
   // the result, off the chain: (n, k) in the storage out_st, each value
   // rounded to it once (hi + lo for df64)
   const range_t<val_t<DF64>, Coded> ro(out, out_st, n, k, k);
@@ -620,16 +813,16 @@ extern "C" int accblas_leaf_phase(const void* A, int a_st, int64_t n, const void
 
 // A: n x n row-major (storage a_st). inv: (>= ceil(n / kLeaf), kLeaf, kLeaf)
 // leaf inverses (identity past n), column-major per leaf. bt: (k, npad) f32
-// right-hand sides, zero past n, npad >= ceil(n / kLeaf) * kLeaf. xhi (and
-// xlo for df64): (k, npad) f32 scratch for the published x; sync: 2 * k
-// unsigned counters (two per panel are used), zeroed here. out: (n, k) row-major in
-// storage out_st. vec_ok: A 16-byte aligned and n a multiple of the vector
-// width. One memset and one kernel launch on `stream`; returns the first
-// error, or 0.
+// right-hand sides, zero past n, npad >= ceil(n / kLeaf) * kLeaf. scratch:
+// the published x, (k, npad) 8-byte words (then as many again for df64's lo
+// words), then a 32-bit ticket counter per panel of right-hand sides; all of
+// it zeroed here. out: (n, k) row-major in storage out_st. vec_ok: A 16-byte
+// aligned and n a multiple of the vector width. One memset and one kernel
+// launch on `stream`; returns the first error, or 0.
 extern "C" int accblas_trsv_sweep(const void* A, int a_st, int64_t n, int64_t npad,
-                                  const float* inv, const float* bt, int64_t k, float* xhi,
-                                  float* xlo, unsigned* sync, void* out, int out_st, int lower,
-                                  int df, int vec_ok, void* stream) {
+                                  const float* inv, const float* bt, int64_t k, void* scratch,
+                                  void* out, int out_st, int lower, int df, int vec_ok,
+                                  void* stream) {
   using namespace accblas;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nr = static_cast<int>((n + kLeaf - 1) / kLeaf);
@@ -638,10 +831,14 @@ extern "C" int accblas_trsv_sweep(const void* A, int a_st, int64_t n, int64_t np
     constexpr bool DF64 = decltype(dft)::value;
     constexpr int KP = decltype(kpt)::value;
     const unsigned panels = static_cast<unsigned>((k + KP - 1) / KP);
-    const cudaError_t err = cudaMemsetAsync(sync, 0, 2 * panels * sizeof(unsigned), s);
+    Word* xhi = static_cast<Word*>(scratch);
+    Word* xlo = DF64 ? xhi + k * npad : nullptr;
+    unsigned* tickets = reinterpret_cast<unsigned*>(xhi + (DF64 ? 2 : 1) * k * npad);
+    const size_t bytes = reinterpret_cast<char*>(tickets + panels) - static_cast<char*>(scratch);
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, bytes, s);
     if (err != cudaSuccess) return err;
     trsv_sweep<SA, DF64, KP><<<dim3(nr, panels), kThreads, 0, s>>>(
-        static_cast<const SA*>(A), n, nr, npad, inv, bt, k, xhi, xlo, sync, out, out_st,
+        static_cast<const SA*>(A), n, nr, npad, inv, bt, k, xhi, xlo, tickets, out, out_st,
         lower, vec_ok);
     return cudaGetLastError();
   });
@@ -658,3 +855,11 @@ extern "C" int accblas_trsv_sweep_occupancy(int a_st, int df, int64_t k, int* bl
         blocks, trsv_sweep<SA, decltype(dft)::value, decltype(kpt)::value>, kThreads, 0);
   });
 }
+
+#ifdef ACCBLAS_TRSV_STAMPS
+// The debug build's stamp buffer (trsv_sweep's note on kStampSlots): at
+// least panels * ceil(n / kLeaf) * 9 words for the next sweeps.
+extern "C" int accblas_trsv_stamps(void* buf) {
+  return cudaMemcpyToSymbol(accblas::g_stamps, &buf, sizeof(buf));
+}
+#endif

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 built at first use into ``build/accblas_tpu_torch/`` at the root of the
 checkout. The file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one is reused. Nothing here runs
+edited source builds anew and an unchanged one is reused. A debug or test
+build of a source (macros defined, ``defines``) is another library beside
+it; the main path loads none. Nothing here runs
 at import time: the CPU tests import every module on machines without nvcc.
 """
 
@@ -40,11 +42,11 @@ _NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
 # the build log's last line: nvcc's wall seconds for the library
 BUILD_SECONDS = "build seconds:"
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple], ctypes.CDLL] = {}
 # seconds this process has spent in the loads of `load` that did work (a
 # library already loaded adds nothing)
 load_seconds = 0.0
-_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_functions: dict[tuple, ctypes._CFuncPtr] = {}
 
 # run-time codes of the kernels' template parameters (csrc/accessor.cuh)
 STORAGE_CODE = {"f32": 0, "bf16": 1, "f16": 2, "f8e4m3": 3, "f8e5m2": 4}
@@ -61,20 +63,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _define_flags(defines) -> list[str]:
+    """nvcc's -D flags for `defines`, each "NAME" or "NAME=VALUE"."""
+    return [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines=()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *_define_flags(defines))).encode())
     for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, out: Path):
+def _start(name: str, out: Path, defines=()):
     """Start nvcc on csrc/<name>.cu, writing to a temporary file beside `out`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, str(_CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-I", str(_CSRC), "-o", tmp,
+           str(_CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp
 
@@ -93,11 +101,12 @@ def _finish(name: str, proc, tmp: str, out: Path, log: str, seconds: float, buil
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
 
 
-def build(*names: str) -> list[Path]:
+def build(*names: str, defines=()) -> list[Path]:
     """Build the named sources (all of csrc/*.cu if none), concurrently, where
-    no up-to-date library exists yet. Returns the library paths."""
+    no up-to-date library exists yet, with the macros `defines`. Returns the
+    library paths."""
     names = names or tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
-    paths = [_lib_path(n) for n in names]
+    paths = [_lib_path(n, defines) for n in names]
     jobs = []
     # one waiter a compiler, so that each library's seconds are its own
     pool = ThreadPoolExecutor(len(names) or 1)
@@ -105,7 +114,7 @@ def build(*names: str) -> list[Path]:
         t0 = time.perf_counter()
         for n, p in zip(names, paths):
             if not p.exists():
-                jobs.append((n, *_start(n, p), p))
+                jobs.append((n, *_start(n, p, defines), p))
         waits = [pool.submit(_wait, proc, t0) for _, proc, _, _ in jobs]
         for (name, proc, tmp, out), done in zip(jobs, waits):
             _finish(name, proc, tmp, out, *done.result(), len(jobs))
@@ -130,31 +139,34 @@ def build_log(name: str) -> str:
     return path.with_suffix(".log").read_text()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed; the
-    seconds a load that does work takes (build and dlopen) add to
-    `load_seconds`."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with the macros
+    `defines`), built first if needed; the seconds a load that does work
+    takes (build and dlopen) add to `load_seconds`."""
     global load_seconds
-    lib = _loaded.get(name)
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
         t0 = time.perf_counter()
         with span("accblas.load"):
-            (path,) = build(name)
-            lib = _loaded[name] = ctypes.CDLL(str(path))
+            (path,) = build(name, defines=defines)
+            lib = _loaded[key] = ctypes.CDLL(str(path))
         load_seconds += time.perf_counter() - t0
     return lib
 
 
-def function(lib: str, name: str, argtypes):
-    """C entry point `name` of csrc/<lib>.cu, with its argument types set;
-    cached per (library, entry point), so a call costs a dict lookup.
-    Every entry point returns a cudaError_t as an int."""
-    fn = _functions.get((lib, name))
+def function(lib: str, name: str, argtypes, defines=()):
+    """C entry point `name` of csrc/<lib>.cu (of its build with the macros
+    `defines`), with its argument types set; cached per (library, entry
+    point, macros), so a call costs a dict lookup. Every entry point returns
+    a cudaError_t as an int."""
+    key = (lib, name, *defines)
+    fn = _functions.get(key)
     if fn is None:
-        fn = getattr(load(lib), name)
+        fn = getattr(load(lib, defines), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _functions[(lib, name)] = fn
+        _functions[key] = fn
     return fn
 
 

@@ -27,7 +27,8 @@ replace the Pallas kernels ``_extract_leaf_diag.kern`` and ``_trsv_kernel``
 of ``accblas_tpu.ops.trsv``): phase 1 is one launch of ``leaf_phase``
 (gather, inversion in shared memory and the panels), phase 2 a sweep of one
 launch whose CTAs, one per ``LEAF``-row block row, order themselves by
-tickets. A CPU tensor runs ``_leaf_phase_plain`` (the masked gather
+tickets and hand x on as tagged words, each load of x its own wait. A CPU
+tensor runs ``_leaf_phase_plain`` (the masked gather
 ``_extract_leaf_diag_plain``, the batched inversion ``_leaf_inverses`` by
 ``torch.linalg.solve_triangular`` and ``_rhs_panels``) and
 ``_trsv_sweep_plain``, the same functions in plain torch ops; the plain
@@ -76,10 +77,13 @@ LEAF = 64
 # throughput-only there
 BF16_STABLE_N = 1024
 
-# launches of the kernels, counted where the wrappers launch them
+# launches of the kernels, counted where the wrappers launch them; and the
+# sweep's steps, block rows times panels of right-hand sides, each one hop of
+# its chain
 leaf_diag_launches = 0
 leaf_phase_launches = 0
 sweep_launches = 0
+sweep_steps = 0
 
 _LEAF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -88,9 +92,8 @@ _PHASE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SWEEP_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 _OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
 
@@ -319,10 +322,25 @@ def _trsv_sweep_plain(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tens
     return out
 
 
-def _trsv_sweep_cuda(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tensor:
-    """Launch the csrc/trsv.cu sweep (one counter memset and one kernel) on
-    the current stream; X (n, k) in `out_dtype`."""
-    global sweep_launches
+def sweep_panels(k: int) -> int:
+    """Panels of right-hand sides the CUDA sweep runs for k of them, one
+    chain each: of 1 for TRSV, of 4 for TRSM (csrc/trsv.cu ``with_sweep``)."""
+    return 1 if k == 1 else -(-k // 4)
+
+
+def sweep_scratch_bytes(k: int, npad: int, df: bool) -> int:
+    """The sweep's scratch, which its memset zeroes: the published x as
+    8-byte words, (k, npad) of them (twice that for df64's hi and lo), then
+    a 32-bit ticket counter per panel."""
+    return 8 * (2 if df else 1) * k * npad + 4 * sweep_panels(k)
+
+
+def _trsv_sweep_cuda(a, inv, bt, lower: bool, ar: str, out_dtype, entry=None) -> torch.Tensor:
+    """Launch the csrc/trsv.cu sweep (one scratch memset and one kernel) on
+    the current stream; X (n, k) in `out_dtype`. `entry`: the C entry of
+    another build of the same source (chip_smoke.py's stamped build, a
+    test's), in place of the library's."""
+    global sweep_launches, sweep_steps
     n = a.shape[0]
     k, npad = bt.shape
     sa = _build.storage_code(a, "trsv A")
@@ -334,19 +352,15 @@ def _trsv_sweep_cuda(a, inv, bt, lower: bool, ar: str, out_dtype) -> torch.Tenso
     _check_inverses(inv, n)
     vec_ok = a.data_ptr() % 16 == 0 and n % (16 // a.element_size()) == 0
     df = ar == "df64"
-    # one scratch buffer: the published x (hi, and lo for df64), then room
-    # for two 32-bit counters per panel of right-hand sides
-    nx = (2 if df else 1) * k * npad
-    scratch = torch.empty(nx + 2 * k, dtype=torch.float32, device=a.device)
+    scratch = torch.empty(sweep_scratch_bytes(k, npad, df), dtype=torch.uint8, device=a.device)
     out = torch.empty(n, k, dtype=out_dtype, device=a.device)
-    x_hi = scratch.data_ptr()
-    fn = _build.function("trsv", "accblas_trsv_sweep", _SWEEP_ARGTYPES)
+    fn = entry or _build.function("trsv", "accblas_trsv_sweep", _SWEEP_ARGTYPES)
     with _build.on_device(a):
-        err = fn(a.data_ptr(), sa, n, npad, inv.data_ptr(), bt.data_ptr(), k, x_hi,
-                 x_hi + 4 * k * npad if df else None, x_hi + 4 * nx, out.data_ptr(), so,
-                 int(lower), int(df), int(vec_ok), _build.stream(a))
+        err = fn(a.data_ptr(), sa, n, npad, inv.data_ptr(), bt.data_ptr(), k, scratch.data_ptr(),
+                 out.data_ptr(), so, int(lower), int(df), int(vec_ok), _build.stream(a))
     _build.check(err, "trsv sweep launch")
     sweep_launches += 1
+    sweep_steps += -(-n // LEAF) * sweep_panels(k)
     return out
 
 

@@ -68,6 +68,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      torch.empty, of the bare ctypes call and of the checks alone; and
      acc_trsm at n = 16384 with k = 8 and 64 right-hand sides, checked
      against float64 and timed beside torch.linalg.solve_triangular;
+  hop stamps: the TRSV sweep's chain hop timed from inside the kernel, by
+     the one build of csrc/trsv.cu with ACCBLAS_TRSV_STAMPS (built here
+     alone; the main path's library stamps nothing): on bench.py's
+     operand at n = 16384 (f32) and on a unit upper bf16 operand at
+     n = 65536 (the refinement cell's storage and size, more block rows
+     than the card holds CTAs), the stamped x bit for bit the library's,
+     and a "hop" line each: the mean hop from publication to publication,
+     its phases (the wait, the last tile, the fold and barrier, the
+     inverse product, the publish), the share of hops whose CTA was
+     already waiting when the words came (chain-bound), and the handoff of
+     those hops (publication to the words seen);
   generic: the three kernels of csrc/generic.cu, each written once against
      the device Range, at f32/f32, bf16 storage with f32 arithmetic and
      f32 storage with df64 arithmetic, on operands drawn by the draw
@@ -1523,6 +1534,100 @@ def phase_main_trsv() -> list[dict]:
         entry("tri_gemv", "accblas_tpu_torch/csrc/tri_gemv.cu",
               "accblas_tpu/ops/tri_gemv.py:27", *times["tri_gemv"], None),
     ]
+
+
+# --------------------------------------------------------------------------
+# the hop stamps: the sweep's chain hop timed inside the kernel
+# --------------------------------------------------------------------------
+
+# the debug build of csrc/trsv.cu that stamps each hop (its kStampSlots
+# words a CTA: %globaltimer when the hop's wait began and at publication,
+# clock64 at the hop's six points, the polls of the hop's wait)
+TRSV_STAMPS = ("ACCBLAS_TRSV_STAMPS",)
+STAMP_SLOTS = 9
+HOP_PHASES = ("wait", "last tile", "fold", "inverse", "publish")
+N_HOP_BF16 = 65536
+
+
+def hop_split(stamps: torch.Tensor) -> dict:
+    """The mean hop of one chain from its stamps, (nr, STAMP_SLOTS) int64 in
+    ticket order: ns from one publication to the next (%globaltimer); each
+    phase's mean ns (clock64, at the clock the CTAs' own two readings of
+    both timers give); the share of hops whose CTA polled more than once
+    (its words had not come when it looked: the hop is the chain's); and
+    the handoff of those hops, the hop less what the CTA did after the
+    words came."""
+    st = stamps[1:].double()  # ticket 0 has no hop
+    clk = st[:, 2:8]
+    ghz = float((clk[:, 5] - clk[:, 0]).sum() / (st[:, 1] - st[:, 0]).sum())
+    phases = (clk[:, 1:] - clk[:, :-1]) / ghz
+    hop = stamps[1:, 1].double() - stamps[:-1, 1].double()
+    bound = st[:, 8] > 1
+    after = (clk[:, 5] - clk[:, 1]) / ghz
+    out = {"hops": int(hop.numel()), "hop_ns": float(hop.mean()), "ghz": ghz,
+           "chain_bound": float(bound.double().mean())}
+    out.update({name: float(phases[:, i].mean()) for i, name in enumerate(HOP_PHASES)})
+    out["handoff_ns"] = float((hop - after)[bound].mean()) if bool(bound.any()) else float("nan")
+    return out
+
+
+def stamped_sweep(a, b, uplo: str, unit: bool, ar: str = "f32"):
+    """One solve whose sweep runs the stamped build: (x, the sweep's stamps
+    as (panels * nr, STAMP_SLOTS) int64 in ticket order)."""
+    import ctypes
+
+    from accblas_tpu_torch.ops import _build
+    from accblas_tpu_torch.ops import trsv as trsvops
+
+    n = a.shape[0]
+    b2 = b.reshape(n, -1)
+    nb = -(-n // trsvops.BLOCK)
+    entry = _build.function("trsv", "accblas_trsv_sweep", trsvops._SWEEP_ARGTYPES,
+                            defines=TRSV_STAMPS)
+    set_buf = _build.function("trsv", "accblas_trsv_stamps", [ctypes.c_void_p],
+                              defines=TRSV_STAMPS)
+    nr = -(-n // trsvops.LEAF)
+    stamps = torch.zeros(trsvops.sweep_panels(b2.shape[1]) * nr, STAMP_SLOTS, dtype=torch.int64,
+                         device=a.device)
+    _build.check(set_buf(stamps.data_ptr()), "trsv stamp buffer")
+    inv, bt = trsvops._leaf_phase(a, b2, nb, uplo == "lower", unit)
+    x = trsvops._trsv_sweep_cuda(a, inv, bt, uplo == "lower", ar, torch.float32, entry=entry)
+    torch.cuda.synchronize()
+    return x.reshape(b.shape), stamps
+
+
+def phase_hop_stamps() -> None:
+    """The "hop" lines: the stamped sweep at f32 16384 (bench.py's operand)
+    and bf16 65536 (uniform(-1, 1)/n, unit upper), its x bit for bit the
+    library's, the split of the last of 5 solves."""
+    from accblas_tpu_torch import trsv
+    from accblas_tpu_torch.ops import _build
+    from accblas_tpu_torch.utils import devgen
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build("trsv", defines=TRSV_STAMPS)
+    log(f"hop stamps: the stamped build of trsv.cu in {time.perf_counter() - t0:.1f} s")
+    a, b = _bench_trsv_operand(dev)
+    big = devgen.gen_f32((N_HOP_BF16, N_HOP_BF16), SEED, "trsv_a", device=dev)
+    abf = big.mul_(1.0 / N_HOP_BF16).to(torch.bfloat16)
+    del big
+    torch.cuda.empty_cache()
+    for label, op, rhs in ((f"f32 n={N_TRSV}", a, b),
+                           (f"bf16 n={N_HOP_BF16}", abf, torch.ones(N_HOP_BF16, device=dev))):
+        want = trsv(op, rhs, "upper", True, unstable_ok=True)
+        for _ in range(5):
+            x, stamps = stamped_sweep(op, rhs, "upper", True)
+        if not torch.equal(x.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"hop stamps {label}: the stamped sweep's x differs from the "
+                                 f"library's")
+        sp = hop_split(stamps)
+        log(f"hop {label} upper unit: {sp['hops']} hops, mean {sp['hop_ns']:.1f} ns a hop; "
+            + ", ".join(f"{k} {sp[k]:.1f}" for k in HOP_PHASES)
+            + f" ns; chain-bound {100 * sp['chain_bound']:.1f}% of hops, their handoff "
+            f"{sp['handoff_ns']:.1f} ns; SM clock {sp['ghz']:.3f} GHz by the CTAs' timers")
+    del abf
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -2990,6 +3095,7 @@ def main() -> int:
     _run("trsv checks", phase_trsv_checks)
     kernels = _run("dot/gemv main path", phase_main)
     kernels += _run("trsv main path", phase_main_trsv)
+    _run("trsv hop stamps", phase_hop_stamps)
     kernels.append(_run("draws", phase_draws))
     kernels += _run("generic", phase_generic)
     f8_records, probe_rows = _run("f8 probe", phase_f8_probe)

@@ -1785,6 +1785,130 @@ def test_packed_bf16_sweeps_past_2p31_elements(cuda):
     assert float((x.double() - x64).abs().max() / x64.abs().max()) <= 1e-5
 
 
+# ---- the sweep's handoff: x as tagged words, each load its own wait ----
+
+def _same_x(x, y) -> bool:
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def _repeats_beside_a_product(solve, cuda):
+    """solve()'s x, three more times bit for bit, then once more on a second
+    stream while f32 products run on a third: the product's blocks take SMs
+    from the sweep, whose CTAs then start late and in another order."""
+    x = solve()
+    for _ in range(3):
+        assert _same_x(solve(), x)
+    m = torch.randn(8192, 8192, device=cuda)
+    torch.cuda.synchronize()
+    side, mine = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            m = (m @ m).mul_(1.0 / 8192)
+    with torch.cuda.stream(mine):
+        y = solve()
+    torch.cuda.synchronize()
+    assert _same_x(y, x)
+    return x
+
+
+@pytest.mark.parametrize("case", ["f32 n=16384", "f32 beyond the resident CTAs",
+                                  "df64 n=1000", "df64 n=1000 k=8", "f32 n=4096 k=8"])
+def test_sweep_handoff_repeats_its_bits(cuda, case):
+    """The tagged handoff at the TRSV cell's size, on a grid of more block
+    rows than the card holds sweep CTAs at once, in the df64 tier and in
+    panels of 4 right-hand sides: x repeats bit for bit, beside a kernel
+    on another stream too, and meets float64 within the tier's bound."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if case.startswith("f32 n=16384") or case.startswith("f32 beyond"):
+        resident = ttrsv.sweep_occupancy(torch.float32, "f32", 1) * sms
+        n = 16384 if case == "f32 n=16384" else max(20000, ttrsv.LEAF * (resident + 49) + 17)
+        assert case == "f32 n=16384" or -(-n // ttrsv.LEAF) > resident
+        a = devgen.gen_f32((n, n), 59, "trsv_a", device=cuda).mul_(1.0 / n)
+        b = torch.ones(n, device=cuda)
+        uplo, unit, ar, tol = "upper", True, "f32", 1e-4
+    else:
+        n = 4096 if "4096" in case else 1000
+        a, b = _packed_lu(n, 61, cuda)
+        if "k=8" in case:
+            b = devgen.gen_f32((n, 8), 61, "trsv_b", device=cuda)
+        uplo, unit = ("lower", True) if "k=8" in case else ("upper", False)
+        ar = "df64" if case.startswith("df64") else "f32"
+        tol = _trsv_tol(ar, "f32")
+    fn = accblas_tpu_torch.acc_trsv if b.dim() == 1 else accblas_tpu_torch.acc_trsm
+    x = _repeats_beside_a_product(lambda: fn(a, b, uplo, unit, ar=ar), cuda)
+    assert torch.isfinite(x).all()
+    assert _rel1(x, _solve64(a, b, uplo, unit)) < tol
+
+
+def test_sweep_handoff_bf16_at_the_refinement_size(cuda):
+    """The refinement cell's sweeps, lower unit and upper non-unit on its
+    bf16 factors at n = 65536: 1024 block rows, about four times what the
+    card holds at once, so late CTAs start on a backlog of published words.
+    Each solve repeats bit for bit, beside a kernel on another stream too,
+    and its residual is held to f32 arithmetic."""
+    n = 65536
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert n // ttrsv.LEAF > ttrsv.sweep_occupancy(torch.bfloat16, "f32", 1) * sms
+    a, lu32 = _dominant_lu(n, 7, cuda)
+    del a
+    lu = lu32.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    del lu32
+    torch.cuda.empty_cache()
+    b = devgen.gen_f32((n,), 7, "trsv_b", device=cuda)
+    y = _repeats_beside_a_product(
+        lambda: accblas_tpu_torch.acc_trsv(lu, b, "lower", True, unstable_ok=True), cuda)
+    x = _repeats_beside_a_product(
+        lambda: accblas_tpu_torch.acc_trsv(lu, y, "upper", False, unstable_ok=True), cuda)
+    assert torch.isfinite(x).all()
+    assert _tri_residual(lu, y, b, True) <= 1e-5
+    assert _tri_residual(lu, x, y, False) <= 1e-5
+
+
+# a test build of csrc/trsv.cu: a wait bounded at 2^12 polls, and ticket 5
+# never publishing its words
+_TRAP_BUILD = ("ACCBLAS_TRSV_MAX_POLLS=4096", "ACCBLAS_TRSV_WITHHOLD=5")
+_TRAP_RUN = """
+import sys
+import torch
+from accblas_tpu_torch.ops import _build
+from accblas_tpu_torch.ops import trsv as t
+entry = _build.function("trsv", "accblas_trsv_sweep", t._SWEEP_ARGTYPES, defines={defines!r})
+n = 2048
+a = torch.triu(torch.rand(n, n, device="cuda"), 1).mul_(1.0 / n) + torch.eye(n, device="cuda")
+b = torch.ones(n, 1, device="cuda")
+inv, bt = t._leaf_phase(a, b, n // t.BLOCK, False, True)
+torch.cuda.synchronize()
+try:
+    t._trsv_sweep_cuda(a, inv, bt, False, "f32", torch.float32, entry=entry)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("call failed:", e, flush=True)
+    sys.exit(3)
+print("call returned", flush=True)
+"""
+
+
+def test_sweep_wait_traps_when_a_word_never_comes(cuda):
+    """A test build that withholds one block row's words and bounds a wait
+    at 4096 polls: the sweep prints which wait ran out and traps, and the
+    call fails with a CUDA error rather than hanging. In a process of its
+    own, since a trap leaves the process's CUDA context unusable."""
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _TRAP_RUN.format(defines=_TRAP_BUILD)],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 3, out
+    # upper, 32 block rows: ticket 5 solves block row 26
+    assert re.search(r"accblas trsv_sweep: panel 0, ticket \d+ waited 4096 polls for the x of "
+                     r"block row 26 \(\d+ behind the chain\); trapping", out), out
+    assert "call failed:" in out and "CUDA" in out, out
+
+
 def test_lu_refine_kernels_against_reference(cuda):
     """lu_refine at n = 4096 through the kernels: one gemv_rows_dfx and two
     leaf phases and sweeps a step and one more, HPL's criterion met, and x

@@ -6,7 +6,8 @@ their plain versions read and write through Ranges, as the JAX kernels do.
   (csrc/trsv.cu) read no operand and write no result but through
   `csrc/range.cuh`: none of accessor.cuh's raw casts and loads, no subscript
   of, or arithmetic on, an operand's pointer. The sweep's published x
-  (`load_cg`, `__stcg`) is its cross-CTA protocol, not an operand.
+  (`publish`, `load_words`: tagged words) is its cross-CTA protocol, not an
+  operand.
 - The plain versions, which read through `accessor/range.py` (a counter on
   its Range shows it), still meet the JAX package's results at the
   tolerances tests/test_torch_{dot,gemv,trsv}.py state, at a ragged n, for
@@ -131,14 +132,18 @@ def test_kernel_reads_and_writes_through_range(path, name, operands, through):
 
 
 def test_sweep_keeps_its_published_x_protocol():
-    """The published x stays on the sweep's own L2 path: __stcg stores of
-    xhi/xlo, load_cg reads, never an accessor read (L1 is not coherent
-    across CTAs within a launch)."""
+    """The published x stays on the sweep's own L2 path: tagged words of
+    xhi/xlo stored by publish and read by load_words, at GPU scope, never
+    an accessor read (L1 is not coherent across CTAs within a launch)."""
     src = _strip_comments((CSRC / "trsv.cu").read_text())
     sweep = _body(src, "trsv_sweep")
-    assert "__stcg(xhi" in sweep and "__stcg(xlo" in sweep
-    assert "load_cg<V>(h, xhi" in _body(src, "add_tile")
-    assert "__ldcg" in _body(src, "load_cg")
+    assert "publish(xhi" in sweep and "publish(xlo" in sweep
+    assert "load_words(w, xhi" in sweep
+    tile = _body(src, "add_tile")
+    assert "await_words(w, xhi" in tile and "xlo" in tile and "load_words(rest" in tile
+    assert "st.relaxed.gpu.global.b64" in _body(src, "publish")
+    assert "ld.relaxed.gpu.global.v2.b64" in _body(src, "load_words")
+    assert "load_words(" in _body(src, "await_words")
 
 
 def test_range_header_states_its_additions():

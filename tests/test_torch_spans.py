@@ -213,7 +213,7 @@ def test_load_counts_its_seconds_once(monkeypatch, tmp_path):
     """A load that does work adds its seconds to ``load_seconds`` and
     records an ``accblas.load`` span; a loaded library adds nothing."""
     lib = tmp_path / "libx.so"
-    monkeypatch.setattr(_build, "build", lambda name: [lib])
+    monkeypatch.setattr(_build, "build", lambda name, defines=(): [lib])
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "load_seconds", 0.0)
